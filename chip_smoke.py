@@ -6,22 +6,39 @@
 Phases, each timed, any failure exits non-zero:
 
 1. setup: the card's name and power limit (nvidia-smi), and the build of the
-   hand-written CUDA kernels with plain nvcc (seconds);
+   hand-written CUDA kernels with plain nvcc (seconds, one nvcc per source,
+   all started together);
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes: K2 ``max_pool_2x2`` at the five VGG-16 pool inputs of a
-   720x1280 frame (f32 and bf16, bit-equal), K1 ``roi_align`` on a
+   paths' shapes: K2 ``max_pool_2x2`` and K2b ``max_pool_2x2_bwd`` at the
+   five VGG-16 pool inputs of a 720x1280 frame and an odd 7x9 map (f32 and
+   bf16, random and tie-heavy inputs, a non-contiguous incoming gradient;
+   bit-equal), K1 ``roi_align`` and K1b ``roi_align_bwd`` on a
    [20,22,40,512] map with 12 boxes per frame including border, outside and
-   zero-area boxes (f32 atol 1e-5, bf16 within one bf16 ulp);
+   zero-area boxes (f32 within 1e-5, resp. 1e-5 of max|df| for K1b, whose
+   atomics add in a varying order; bf16 within one bf16 ulp);
 3. full-width serving of the flagship preset ``volleyball_stage2_dynamic``
-   (VGG-16, 720x1280, T=10, N=12, bf16 backbone, f32 head) through
-   ``Predictor(pad_to=2)`` with seeded random weights: three requests (1
-   clip, 3 clips, the first clip again), checked for shape, finite rows
-   summing to 1, the repeated clip's answer, and the launch counts of K1 and
-   K2, which are set to 0 just before and read just after;
-4. the port on the card (kernels) against the port on the CPU (plain
-   versions) on one clip at T=3, 144x160, float32 with TF32 off, atol 1e-4;
-5. each kernel's time at the main path's shapes beside its bound, its plain
-   version's time and, for K2, ``F.max_pool2d``'s time.
+   (VGG-16, 720x1280, T=10, N=12, bf16 backbone compute, f32 weights and
+   head) through ``Predictor(pad_to=2)`` with seeded random weights: three
+   requests (1 clip, 3 clips, the first clip again), checked for shape,
+   finite rows summing to 1, the repeated clip's answer, and the launch
+   counts, which are set to 0 just before and read just after;
+4. full-width training of the flagship through ``train_net``: one epoch of
+   3 Adam steps at batch 2 on synthetic data, an eval pass and a checkpoint,
+   with the launch counts of all four kernels (0 just before, read just
+   after, against counts derived from ``auto_chunk``); finite losses; the
+   checkpoint reloaded as ``--stage2-model-path`` gives equal params and
+   Adam state;
+5. memorisation: 8 steps on one fixed full-width batch with dropout 0, the
+   loss at step 8 below step 1; ms per step after a warm-up step, clips/s,
+   peak device memory, and one profiled step's device time split by kernel;
+6. the port on the card (kernels) against the port on the CPU (plain
+   versions), float32 with TF32 off: serving one clip at T=3, 144x160
+   (atol 1e-4), and 3 training steps at that geometry, dropout 0, each
+   taken from the CPU's state (losses rtol 1e-4, parameters within the CPU
+   trajectory test's bounds after a ReLU or pool flip) and along the
+   card's own trajectory (parameters within the same bounds);
+7. each kernel's time at the main paths' shapes beside its bound, its plain
+   version's time and, where one exists, a PyTorch call's time.
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -30,12 +47,16 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -137,6 +158,55 @@ def roi_sampled_bytes(features: torch.Tensor, boxes: torch.Tensor,
     return len(rows) * C * item + (ys.size + xs.size) * 4 + out
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """float32 convolutions and matmuls in full float32 on the card."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def check_params(got: dict, want: dict, steps: int, lr: float,
+                 what: str) -> tuple:
+    """The parameter bounds of tests/test_torch_train.py after a ReLU or
+    pool flip: no element more than 2*lr per step apart (Adam moves each by
+    about lr whatever its gradient's size), and elementwise 2e-5 for all
+    but 10 % of a tensor's elements.  The flip bound applies: f32 sums on
+    the two devices differ, and a pre-activation, pool window, actor max or
+    DIN sample position that close to a switch takes the other branch.
+    Returns the largest difference and the largest share beyond 2e-5."""
+    worst = share_worst = 0.0
+    for name, w in want.items():
+        diff = (got[name].float().cpu() - w.float().cpu()).abs()
+        share = float((diff > 2e-5).float().mean())
+        worst = max(worst, float(diff.max()))
+        share_worst = max(share_worst, share)
+        require(float(diff.max()) <= steps * 2 * lr,
+                f"{what}: {name} differs by {float(diff.max())}")
+        require(share <= 0.1,
+                f"{what}: {name} has {share:.4f} of elements beyond 2e-5")
+    return worst, share_worst
+
+
+def time_host(fn, iters: int) -> list:
+    """ms of each of ``iters`` calls of ``fn``, host clock, each ended by a
+    synchronize."""
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -145,20 +215,43 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from din_tpu_torch.data.synthetic import make_synthetic_batch
+    from din_tpu_torch.data.loader import BatchLoader, to_device
+    from din_tpu_torch.data.synthetic import (SyntheticDataset,
+                                              make_synthetic_batch,
+                                              return_dataset)
     from din_tpu_torch.experiments.predict import Predictor
     from din_tpu_torch.experiments.presets import PRESETS
+    from din_tpu_torch.experiments.profile_training import breakdown
+    from din_tpu_torch.experiments.run import config_from_args
     from din_tpu_torch.models.registry import build_model
     from din_tpu_torch.models.trunk import auto_chunk
     from din_tpu_torch.ops import native
-    from din_tpu_torch.ops.pool import max_pool_2x2, max_pool_2x2_ref
+    from din_tpu_torch.ops.pool import (max_pool_2x2, max_pool_2x2_bwd,
+                                        max_pool_2x2_bwd_ref,
+                                        max_pool_2x2_ref)
     from din_tpu_torch.ops.roi_align import (_sample_grid, roi_align,
+                                             roi_align_bwd,
+                                             roi_align_bwd_ref,
                                              roi_align_ref)
+    from din_tpu_torch.train.engine import (setup_training, train_net,
+                                            train_step)
+    from din_tpu_torch.train.optim import make_optimizer
+
+    wrappers = {"roi_align": roi_align, "max_pool_2x2": max_pool_2x2,
+                "max_pool_2x2_bwd": max_pool_2x2_bwd,
+                "roi_align_bwd": roi_align_bwd}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {k: w.launches for k, w in wrappers.items()}
 
     dev = torch.device("cuda")
     t_all = time.time()
 
-    # -- 1. setup ------------------------------------------------------------
+    # -- 1. setup -------------------------------------------------------------
     t0 = time.time()
     smi = nvidia_smi_line()
     log(f"[setup] card: {smi}; torch {torch.__version__} cuda "
@@ -175,24 +268,45 @@ def main() -> int:
                 log(f"[setup] ptxas: {line.strip()}")
     log(f"[setup] done in {time.time() - t0:.2f} s")
 
-    # -- 2. kernels against plain versions -------------------------------------
+    # -- 2. kernels against plain versions ------------------------------------
     t0 = time.time()
     gen = torch.Generator().manual_seed(SEED)
     dgen = torch.Generator(device=dev).manual_seed(SEED)
     pool_shapes = [(2, 720, 1280, 64), (2, 360, 640, 128), (2, 180, 320, 256),
                    (2, 90, 160, 512), (2, 45, 80, 512), (2, 7, 9, 3)]
-    pool_err = 0.0
+    pool_err = pool_bwd_err = 0.0
     for shape in pool_shapes:
+        F_, H_, W_, C_ = shape
+        out_shape = (F_, H_ // 2, W_ // 2, C_)
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, generator=dgen, device=dev).to(dtype)
-            got, ref = max_pool_2x2(x), max_pool_2x2_ref(x)
-            torch.cuda.synchronize()
-            require(torch.equal(got, ref),
-                    f"max_pool_2x2 != plain at {shape} {dtype}")
-            pool_err = max(pool_err, (got.float() - ref.float()).abs().max()
-                           .item())
-    log(f"[kernels] K2 max_pool_2x2 == plain (torch.equal) at "
-        f"{[s for s in pool_shapes]} f32+bf16")
+            for kind in ("randn", "ties"):
+                if kind == "ties":   # integers 0..3: most windows tie
+                    x = torch.randint(0, 4, shape, generator=dgen,
+                                      device=dev).to(dtype)
+                    # a gradient that is not NHWC-contiguous, as a conv's
+                    # dgrad may hand over
+                    g = torch.randn((F_, C_, H_ // 2, W_ // 2), generator=dgen,
+                                    device=dev).to(dtype).permute(0, 2, 3, 1)
+                else:
+                    x = torch.randn(shape, generator=dgen, device=dev).to(
+                        dtype)
+                    g = torch.randn(out_shape, generator=dgen,
+                                    device=dev).to(dtype)
+                got, ref = max_pool_2x2(x), max_pool_2x2_ref(x)
+                torch.cuda.synchronize()
+                require(torch.equal(got, ref),
+                        f"max_pool_2x2 != plain at {shape} {dtype} {kind}")
+                got, ref = max_pool_2x2_bwd(x, g), max_pool_2x2_bwd_ref(x, g)
+                torch.cuda.synchronize()
+                require(torch.equal(got, ref),
+                        f"max_pool_2x2_bwd != plain at {shape} {dtype} {kind}")
+                pool_bwd_err = max(pool_bwd_err, float(
+                    (got.float() - ref.float()).abs().max()))
+                pool_err = max(pool_err, pool_bwd_err)
+        del x, g, got, ref
+    log(f"[kernels] K2 max_pool_2x2 and K2b max_pool_2x2_bwd == plain "
+        f"(torch.equal) at {pool_shapes} f32+bf16, random and tie-heavy "
+        f"inputs, non-contiguous gradient")
 
     crop = (5, 5)
     feats32 = torch.randn((20, 22, 40, 512), generator=dgen, device=dev)
@@ -216,14 +330,51 @@ def main() -> int:
     log(f"[kernels] K1 roi_align vs plain at [20,22,40,512] x 12 boxes: "
         f"f32 max |err| {err32:.3g} (<= 1e-5), bf16 max |err| {roi_err:.3g} "
         f"(<= 1 bf16 ulp)")
+
+    hw = tuple(feats32.shape[1:3])
+    gb = torch.randn((20, 12, *crop, 512), generator=dgen, device=dev)
+    got = roi_align_bwd(gb, kboxes, hw, torch.float32)
+    ref = roi_align_bwd_ref(gb, kboxes, hw, torch.float32)
+    torch.cuda.synchronize()
+    bwd32 = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    require(bwd32 <= 1e-5 * scale,
+            f"roi_align_bwd f32 max |err| {bwd32} > 1e-5 * {scale}")
+    require(bool((got[:, :, :, :] != 0).any()), "roi_align_bwd is all 0")
+    gb16 = gb.bfloat16()
+    got = roi_align_bwd(gb16, kboxes, hw, torch.bfloat16)
+    ref = roi_align_bwd_ref(gb16, kboxes, hw, torch.float32)
+    torch.cuda.synchronize()
+    diff = (got.float() - ref).abs()
+    ulp = bf16_ulp(torch.maximum(got.float().abs(), ref.abs()))
+    # one bf16 rounding of a sum whose f32 order differs: 1 ulp plus the
+    # f32 order tolerance (a row summed from many overlapping samples can
+    # cancel to near 0, where the order's error exceeds that row's ulp)
+    scale16 = ref.abs().max().item()
+    excess = (diff - ulp).max().item()
+    require(excess <= 1e-5 * scale16,
+            f"roi_align_bwd bf16 off the f32 result by more than 1 ulp + "
+            f"1e-5 * max|df|: excess {excess}, max |err| "
+            f"{diff.max().item()}")
+    roi_bwd_err = diff.max().item()
+    log(f"[kernels] K1b roi_align_bwd vs plain at [20,12,5,5,512] -> "
+        f"[20,22,40,512], same boxes: f32 max |err| {bwd32:.3g} (<= 1e-5 * "
+        f"max|df| = {1e-5 * scale:.3g}; atomics add in a varying order), "
+        f"bf16 max |err| {roi_bwd_err:.3g} against the f32 result, largest "
+        f"excess over 1 bf16 ulp {max(excess, 0.0):.3g} (<= 1e-5 * max|df| "
+        f"= {1e-5 * scale16:.3g}); "
+        f"{int((diff > ulp).sum())} of {diff.numel()} elements beyond 1 ulp")
+    del feats32, feats16, gb, gb16, got, ref, diff, ulp
     log(f"[kernels] done in {time.time() - t0:.2f} s")
 
-    # -- 3. full-width serving ---------------------------------------------------
+    # -- 3. full-width serving ------------------------------------------------
     t0 = time.time()
     cfg = PRESETS["volleyball_stage2_dynamic"]()
     gen = torch.Generator().manual_seed(SEED)
     model = build_model(cfg, generator=gen)
     _randomize_din(model, gen)
+    require(all(p.dtype == torch.float32 for p in model.parameters()),
+            "parameters are not float32 master weights")
     predictor = Predictor(cfg, model, pad_to=2)
     batch = make_synthetic_batch(cfg, 3, rng=np.random.RandomState(SEED))
     requests = [(batch["images"][:1], batch["boxes"][:1]),
@@ -231,19 +382,18 @@ def main() -> int:
                 (batch["images"][:1], batch["boxes"][:1])]
     log(f"[serve] {cfg.backbone} {cfg.image_size[0]}x{cfg.image_size[1]} "
         f"T={cfg.num_frames} N={cfg.num_boxes} lite={cfg.lite_dim} "
-        f"compute={cfg.compute_dtype}; model built in "
+        f"compute={cfg.compute_dtype}, f32 weights; model built in "
         f"{time.time() - t0:.2f} s")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    max_pool_2x2.launches = 0
-    roi_align.launches = 0
+    reset_counts()
     outs, req_ms = [], []
     for images, boxes in requests:
         tr = time.time()
         outs.append(predictor(images, boxes)["activities"])
         torch.cuda.synchronize()
         req_ms.append((time.time() - tr) * 1e3)
-    k2_launches, k1_launches = max_pool_2x2.launches, roi_align.launches
+    serve_counts = read_counts()
     padded_calls = sum(-(-len(im) // 2) for im, _ in requests)
     chunks = (2 * cfg.num_frames) // auto_chunk(
         2 * cfg.num_frames, *cfg.image_size, cfg.frame_chunk,
@@ -263,13 +413,13 @@ def main() -> int:
     log(f"[serve] posteriors finite, rows sum to 1; repeated clip max |diff| "
         f"{rep:.3g}; clip 0 in the 3-clip request differs by "
         f"{float(np.abs(outs[0][0] - outs[1][0]).max()):.3g}")
-    log(f"[serve] launches: K2 max_pool_2x2 {k2_launches} (expected "
-        f"{5 * chunks * padded_calls} = 5 pools x {chunks} chunks x "
-        f"{padded_calls} padded calls), K1 roi_align {k1_launches} (expected "
-        f"{padded_calls})")
-    require(k2_launches == 5 * chunks * padded_calls > 0,
-            "K2 launch count is off")
-    require(k1_launches == padded_calls > 0, "K1 launch count is off")
+    expect = {"max_pool_2x2": 5 * chunks * padded_calls,
+              "roi_align": padded_calls, "max_pool_2x2_bwd": 0,
+              "roi_align_bwd": 0}
+    log(f"[serve] launches {serve_counts}, expected {expect} (5 pools x "
+        f"{chunks} chunks x {padded_calls} padded calls; no backward)")
+    require(serve_counts == expect and expect["roi_align"] > 0,
+            "serving launch counts are off")
     main_boxes = torch.from_numpy(
         np.concatenate([batch["boxes"][:1]] * 2).reshape(-1, cfg.num_boxes,
                                                          4)).to(dev)
@@ -277,27 +427,193 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[serve] done in {time.time() - t0:.2f} s")
 
-    # -- 4. card against CPU -----------------------------------------------------
+    # -- 4. full-width training through train_net -----------------------------
     t0 = time.time()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    steps = 3
+    run_root = native.BUILD_DIR.parent / "smoke_runs"
+    run_root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        argv = ["--preset", "volleyball_stage2_dynamic", "--data-path",
+                "synthetic", "--max-epoch", "1", "--result-root", tmp,
+                "--exp-name", "train"]
+        tcfg, _ = config_from_args(argv)
+        _, val_set = return_dataset(tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        max_pool_2x2_bwd.g_copies = 0
+        tt = time.time()
+        best = train_net(tcfg, max_steps_per_epoch=steps)
+        torch.cuda.synchronize()
+        train_s = time.time() - tt
+        train_counts = read_counts()
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        B, T = tcfg.batch_size, tcfg.num_frames
+        H, W = tcfg.image_size
+        step_chunks = (B * T) // auto_chunk(B * T, H, W, tcfg.frame_chunk,
+                                            tcfg.train_backbone)
+        evals = -(-len(val_set) // tcfg.test_batch_size)
+        eval_frames = tcfg.test_batch_size * T
+        eval_chunks = eval_frames // auto_chunk(
+            eval_frames, H, W, tcfg.frame_chunk, tcfg.train_backbone)
+        expect = {"max_pool_2x2": 5 * (steps * step_chunks
+                                       + evals * eval_chunks),
+                  "roi_align": steps + evals,
+                  "max_pool_2x2_bwd": 5 * steps * step_chunks,
+                  "roi_align_bwd": steps}
+        log(f"[train] train_net: flagship at full width, batch {B}, {steps} "
+            f"steps + eval of {len(val_set)} clips + checkpoint in "
+            f"{train_s:.2f} s (host clock, synthetic clips made on the host "
+            f"included); peak device memory {train_peak:.2f} GiB")
+        log(f"[train] launches {train_counts}, expected {expect} (per step "
+            f"5 pools x {step_chunks} chunks of "
+            f"{B * T // step_chunks} frames, 1 RoIAlign; eval {evals} calls "
+            f"x 5 pools x {eval_chunks} chunks); K2b's incoming gradient "
+            f"copied to NHWC {max_pool_2x2_bwd.g_copies} times")
+        require(train_counts == expect and min(expect.values()) > 0,
+                "training launch counts are off")
+        text = (run_root / tmp / "train" / "log.txt").read_text()
+        train_losses = [float(v) for v in
+                        re.findall(r"Loss: ([-+0-9.eEnaif]+)", text)]
+        require(len(train_losses) == 2 and all(
+            math.isfinite(v) for v in train_losses),
+            f"losses in log.txt: {train_losses}")
+        ckpt = best.get("checkpoint")
+        require(ckpt is not None and Path(ckpt).exists(),
+                "no checkpoint written")
+        log(f"[train] train / eval loss {train_losses} (finite); "
+            f"checkpoint {Path(ckpt).name} "
+            f"({Path(ckpt).stat().st_size / 2 ** 20:.0f} MiB)")
+        rcfg, _ = config_from_args(argv + ["--stage2-model-path", ckpt])
+        model, optimizer, start = setup_training(rcfg)
+        saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+        require(start == saved["epoch"] + 1 == 2, f"resumes at {start}")
+        state = model.state_dict()
+        require(all(torch.equal(state[k].cpu(), v)
+                    for k, v in saved["state_dict"].items()),
+                "reloaded params differ")
+        ostate = optimizer.state_dict()
+        require(ostate["param_groups"] == saved["optimizer"]["param_groups"],
+                "reloaded param groups differ")
+        require(len(ostate["state"]) == len(saved["optimizer"]["state"])
+                and all(torch.equal(ostate["state"][i][k].cpu(), v)
+                        for i, s in saved["optimizer"]["state"].items()
+                        for k, v in s.items()),
+                "reloaded Adam state differs")
+        log(f"[train] --stage2-model-path reload: params and Adam state "
+            f"equal ({len(saved['optimizer']['state'])} tensors' moments), "
+            f"resumes at epoch {start}")
+        del model, optimizer, saved, state, ostate
+    torch.cuda.empty_cache()
+    log(f"[train] done in {time.time() - t0:.2f} s")
+
+    # -- 5. memorisation, step time, profile ----------------------------------
+    t0 = time.time()
+    mcfg = cfg.replace(train_dropout_prob=0.0)
+    model, optimizer, _ = setup_training(mcfg)
+    mbatch = to_device(make_synthetic_batch(
+        mcfg, mcfg.batch_size, rng=np.random.RandomState(SEED + 2)), dev)
+    mem_losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_host(lambda: mem_losses.append(float(train_step(
+        model, optimizer, mbatch, mcfg)["loss"])), 8)
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(all(math.isfinite(v) for v in mem_losses), "non-finite loss")
+    require(mem_losses[-1] < mem_losses[0],
+            f"memorisation: loss {mem_losses}")
+    warm = step_ms[1:]
+    ms_step = sum(warm) / len(warm)
+    log(f"[memorise] 8 steps on one batch of {mcfg.batch_size} clips, "
+        f"dropout 0: loss {' '.join(f'{v:.4f}' for v in mem_losses)} "
+        f"(step 8 < step 1)")
+    log(f"[memorise] step times {', '.join(f'{v:.1f}' for v in step_ms)} ms "
+        f"(host clock, synchronized; batch on the card); after the warm-up "
+        f"step {ms_step:.1f} ms per step = "
+        f"{mcfg.batch_size / ms_step * 1e3:.3f} clips/s; peak device memory "
+        f"{step_peak:.2f} GiB")
+    prof = breakdown(lambda: train_step(model, optimizer, mbatch, mcfg), 1)
+    busy = prof["busy_us"]
+    require(busy > 0, "the profiler recorded no device time")
+    shares = {k: v / busy for k, v in prof["by_category"].items()}
+    log(f"[memorise] one profiled step: wall {prof['wall_us'] / 1e3:.1f} ms, "
+        f"device busy {busy / 1e3:.1f} ms (idle share "
+        f"{1 - busy / prof['wall_us']:.3f}); device time by kind: "
+        + ", ".join(f"{k} {v / 1e3:.2f} ms ({shares[k]:.3f})"
+                    for k, v in prof["by_category"].items()))
+    del model, optimizer, mbatch
+    torch.cuda.empty_cache()
+    log(f"[memorise] done in {time.time() - t0:.2f} s")
+
+    # -- 6. card against CPU --------------------------------------------------
+    t0 = time.time()
     small = cfg.replace(image_size=(144, 160), out_size=(4, 5), num_frames=3,
-                        compute_dtype="float32")
-    gen = torch.Generator().manual_seed(SEED)
-    cpu_model = build_model(small, device="cpu", generator=gen)
-    _randomize_din(cpu_model, gen)
-    clip = make_synthetic_batch(small, 1, rng=np.random.RandomState(SEED + 1))
-    on_card = Predictor(small, copy.deepcopy(cpu_model))(
-        clip["images"], clip["boxes"])["activities"]
-    on_cpu = Predictor(small, cpu_model, device="cpu")(
-        clip["images"], clip["boxes"])["activities"]
-    err = float(np.abs(on_card - on_cpu).max())
-    require(err <= 1e-4, f"card vs CPU max |diff| {err} > 1e-4")
-    log(f"[card-vs-cpu] 1 clip T=3 144x160 f32 (TF32 off): max |diff| of "
-        f"posteriors {err:.3g} (<= 1e-4); card {np.round(on_card[0], 4)}")
+                        compute_dtype="float32", train_dropout_prob=0.0)
+    with no_tf32():
+        gen = torch.Generator().manual_seed(SEED)
+        cpu_model = build_model(small, device="cpu", generator=gen)
+        _randomize_din(cpu_model, gen)
+        clip = make_synthetic_batch(small, 1,
+                                    rng=np.random.RandomState(SEED + 1))
+        on_card = Predictor(small, copy.deepcopy(cpu_model))(
+            clip["images"], clip["boxes"])["activities"]
+        on_cpu = Predictor(small, cpu_model, device="cpu")(
+            clip["images"], clip["boxes"])["activities"]
+        err = float(np.abs(on_card - on_cpu).max())
+        require(err <= 1e-4, f"card vs CPU max |diff| {err} > 1e-4")
+        log(f"[card-vs-cpu] serving 1 clip T=3 144x160 f32 (TF32 off): max "
+            f"|diff| of posteriors {err:.3g} (<= 1e-4); card "
+            f"{np.round(on_card[0], 4)}")
+
+        # each step is taken twice on the card: from the CPU's state of
+        # that step (forced: one step's loss and update) and along the
+        # card's own trajectory (free)
+        forced = copy.deepcopy(cpu_model).to(dev)
+        free = copy.deepcopy(cpu_model).to(dev)
+        cpu_opt = make_optimizer(small, cpu_model)
+        forced_opt = make_optimizer(small, forced)
+        free_opt = make_optimizer(small, free)
+        loader = BatchLoader(SyntheticDataset(small, seed=1),
+                             small.batch_size, seed=small.train_random_seed)
+        loader.set_epoch(1)
+        lr = small.train_learning_rate
+        losses = {"cpu": [], "forced": [], "free": []}
+        perr = share = 0.0
+        for b in (b for _, b in zip(range(3), loader)):
+            forced.load_state_dict(cpu_model.state_dict())
+            forced_opt.load_state_dict(copy.deepcopy(cpu_opt.state_dict()))
+            for name, m, opt, d in (("cpu", cpu_model, cpu_opt, "cpu"),
+                                    ("forced", forced, forced_opt, dev),
+                                    ("free", free, free_opt, dev)):
+                losses[name].append(float(train_step(
+                    m, opt, to_device(b, torch.device(d)), small)["loss"]))
+            e, sh = check_params(forced.state_dict(), cpu_model.state_dict(),
+                                 1, lr, "card vs CPU, one step")
+            perr, share = max(perr, e), max(share, sh)
+        lerr = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["forced"], losses["cpu"]))
+        require(lerr <= 1e-4, f"training losses card {losses['forced']} vs "
+                f"CPU {losses['cpu']}")
+        free_perr, free_share = check_params(
+            free.state_dict(), cpu_model.state_dict(), 3, lr,
+            "card vs CPU, 3 free steps")
+        free_lerr = max(abs(a - b) / abs(b)
+                        for a, b in zip(losses["free"], losses["cpu"]))
+    log(f"[card-vs-cpu] training 3 steps, batch {small.batch_size}, T=3 "
+        f"144x160 f32 (TF32 off), dropout 0, each step from the CPU's "
+        f"state: losses card {losses['forced']} CPU {losses['cpu']} (max "
+        f"rel diff {lerr:.3g} <= 1e-4); params after one step max |diff| "
+        f"{perr:.3g} (<= 2 lr), largest share beyond 2e-5 {share:.4f} "
+        f"(<= 0.1)")
+    log(f"[card-vs-cpu] the card's own 3-step trajectory: losses "
+        f"{losses['free']} (max rel diff {free_lerr:.3g}, reported, not "
+        f"bounded); params max |diff| {free_perr:.3g} (<= 6 lr), largest "
+        f"share beyond 2e-5 {free_share:.4f} (<= 0.1)")
+    del cpu_model, forced, free
+    torch.cuda.empty_cache()
     log(f"[card-vs-cpu] done in {time.time() - t0:.2f} s")
 
-    # -- 5. times ----------------------------------------------------------------
+    # -- 7. times -------------------------------------------------------------
     t0 = time.time()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     chunk = 2 * cfg.num_frames // chunks
@@ -306,28 +622,49 @@ def main() -> int:
                (chunk, H // 4, W // 4, 256), (chunk, H // 8, W // 8, 512),
                (chunk, H // 16, W // 16, 512)]
     k2 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    k2b = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
     for shape in pool_in:
         x = torch.randn(shape, generator=dgen, device=dev).bfloat16()
-        y_elems = shape[0] * (shape[1] // 2) * (shape[2] // 2) * shape[3]
+        y_shape = (shape[0], shape[1] // 2, shape[2] // 2, shape[3])
+        y_elems = math.prod(y_shape)
         nbytes = (x.numel() + y_elems) * x.element_size()
         ms = time_cuda(lambda: max_pool_2x2(x), 20, flush)
         plain = time_cuda(lambda: max_pool_2x2_ref(x), 20, flush)
-        lib = time_cuda(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2), 20,
-                        flush)
+        xn = x.permute(0, 3, 1, 2)          # NCHW view, channels_last
+        lib = time_cuda(lambda: F.max_pool2d(xn, 2), 20, flush)
         bound = max(nbytes / HBM_BYTES_PER_S, 3 * y_elems / F32_FLOPS_PER_S)
         log(f"[times] K2 {list(shape)} bf16: kernel {ms:.4f} ms, bound "
             f"{bound * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB), plain "
             f"{plain:.4f} ms, F.max_pool2d {lib:.4f} ms")
-        k2["ms"] += ms
-        k2["plain_ms"] += plain
-        k2["library_ms"] += lib
-        k2["bytes"] += nbytes
-        k2["ops"] += 3 * y_elems
-    k2_bound = max(k2["bytes"] / HBM_BYTES_PER_S,
-                   k2["ops"] / F32_FLOPS_PER_S) * 1e3
-    log(f"[times] K2 five pools of one {chunk}-frame chunk: kernel "
-        f"{k2['ms']:.4f} ms, bound {k2_bound:.4f} ms, plain "
-        f"{k2['plain_ms']:.4f} ms, F.max_pool2d {k2['library_ms']:.4f} ms")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                     ("bytes", nbytes), ("ops", 3 * y_elems)):
+            k2[k] += v
+
+        g = torch.randn(y_shape, generator=dgen, device=dev).bfloat16()
+        # read x and g once, write dx once; 2 maxes and 3 compares a window
+        bbytes = (2 * x.numel() + y_elems) * x.element_size()
+        bops = 5 * y_elems
+        ms = time_cuda(lambda: max_pool_2x2_bwd(x, g), 20, flush)
+        plain = time_cuda(lambda: max_pool_2x2_bwd_ref(x, g), 20, flush)
+        _, idx = F.max_pool2d(xn, 2, return_indices=True)
+        gn = g.permute(0, 3, 1, 2)
+        lib_bwd = torch.ops.aten.max_pool2d_with_indices_backward
+        lib = time_cuda(lambda: lib_bwd(gn, xn, [2, 2], [2, 2], [0, 0],
+                                        [1, 1], False, idx), 20, flush)
+        bound = max(bbytes / HBM_BYTES_PER_S, bops / F32_FLOPS_PER_S)
+        log(f"[times] K2b {list(shape)} bf16: kernel {ms:.4f} ms, bound "
+            f"{bound * 1e3:.4f} ms ({bbytes / 1e6:.1f} MB), plain "
+            f"{plain:.4f} ms, max_pool2d_with_indices_backward {lib:.4f} ms")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                     ("bytes", bbytes), ("ops", bops)):
+            k2b[k] += v
+        del x, g, xn, gn, idx
+    for name, d in (("K2", k2), ("K2b", k2b)):
+        d["bound"] = max(d["bytes"] / HBM_BYTES_PER_S,
+                         d["ops"] / F32_FLOPS_PER_S) * 1e3
+        log(f"[times] {name} five pools of one {chunk}-frame chunk: kernel "
+            f"{d['ms']:.4f} ms, bound {d['bound']:.4f} ms, plain "
+            f"{d['plain_ms']:.4f} ms, library {d['library_ms']:.4f} ms")
 
     OH, OW = cfg.out_size
     feats = torch.randn((main_boxes.shape[0], OH, OW, cfg.emb_features),
@@ -354,21 +691,62 @@ def main() -> int:
         f"wrapper {k1_ms:.4f} ms (launch alone {k1_bare:.4f} ms), bound "
         f"{k1_bound:.5f} ms ({k1_bytes / 1e6:.2f} MB), plain "
         f"{k1_plain:.4f} ms, no single PyTorch call computes it")
+
+    g = torch.randn(out.shape, generator=dgen, device=dev).bfloat16()
+    k1b_ms = time_cuda(lambda: roi_align_bwd(g, main_boxes, (OH, OW),
+                                             torch.bfloat16), 100, flush)
+    k1b_plain = time_cuda(lambda: roi_align_bwd_ref(
+        g, main_boxes, (OH, OW), torch.bfloat16), 100, flush)
+    df32 = torch.zeros(feats.shape, dtype=torch.float32, device=dev)
+    k1b_bare = time_cuda(lambda: native.check(lib.din_roi_align_bwd(
+        g.data_ptr(), ys.data_ptr(), xs.data_ptr(), df32.data_ptr(),
+        *feats.shape, main_boxes.shape[1], *crop, native.DTYPE_BF16,
+        stream), "roi_align_bwd"), 100, flush)
+    # read g and the sample centres once, write d(features) once; 4 products
+    # and 4 sums per sample and channel
+    k1b_bytes = (g.numel() * g.element_size() + (ys.numel() + xs.numel()) * 4
+                 + feats.numel() * feats.element_size())
+    k1b_bound = max(k1b_bytes / HBM_BYTES_PER_S,
+                    8 * g.numel() / F32_FLOPS_PER_S) * 1e3
+    log(f"[times] K1b {list(g.shape)} bf16 -> {list(feats.shape)}: wrapper "
+        f"{k1b_ms:.4f} ms (launch alone, on a zeroed f32 map, "
+        f"{k1b_bare:.4f} ms), bound {k1b_bound:.5f} ms "
+        f"({k1b_bytes / 1e6:.2f} MB), plain {k1b_plain:.4f} ms, no single "
+        f"PyTorch call computes it")
     log(f"[times] done in {time.time() - t0:.2f} s")
     log(f"[total] {time.time() - t_all:.1f} s")
+
+    def launches(name):
+        return {"launches": train_counts[name],
+                "launches_by_path": {"serve": serve_counts[name],
+                                     "train": train_counts[name]}}
 
     kernels = [
         {"name": "roi_align", "route": "cuda",
          "source": "din_tpu_torch/csrc/roi_align.cu",
-         "replaces": "din_tpu/ops/roi_align.py:197", "launches": k1_launches,
+         "replaces": "din_tpu/ops/roi_align.py:197", **launches("roi_align"),
          "max_abs_err": roi_err, "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "max_pool_2x2", "route": "cuda",
          "source": "din_tpu_torch/csrc/max_pool_2x2.cu",
-         "replaces": "din_tpu/ops/pool.py:48", "launches": k2_launches,
+         "replaces": "din_tpu/ops/pool.py:48", **launches("max_pool_2x2"),
          "max_abs_err": pool_err, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2_bound, "bound_by": "bytes",
+         "bound_ms": k2["bound"], "bound_by": "bytes",
          "library_ms": k2["library_ms"]},
+        {"name": "max_pool_2x2_bwd", "route": "cuda",
+         "source": "din_tpu_torch/csrc/max_pool_2x2_bwd.cu",
+         "replaces": "din_tpu/ops/pool.py:57",
+         **launches("max_pool_2x2_bwd"), "max_abs_err": pool_bwd_err,
+         "ms": k2b["ms"], "plain_ms": k2b["plain_ms"],
+         "bound_ms": k2b["bound"], "bound_by": "bytes",
+         "library_ms": k2b["library_ms"]},
+        {"name": "roi_align_bwd", "route": "cuda",
+         "source": "din_tpu_torch/csrc/roi_align_bwd.cu", "replaces": None,
+         "note": "no Pallas kernel: din_tpu computes this gradient with XLA "
+                 "einsums (din_tpu/ops/roi_align.py:302-309)",
+         **launches("roi_align_bwd"), "max_abs_err": roi_bwd_err,
+         "ms": k1b_ms, "plain_ms": k1b_plain, "bound_ms": k1b_bound,
+         "bound_by": "bytes", "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

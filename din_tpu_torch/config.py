@@ -1,26 +1,34 @@
 """Experiment configuration of the port.
 
-A copy of the fields of din_tpu/config.py ``Config`` that the serving slice
-reads, with the same names, defaults and meanings (reference config.py:5-116).
-Training, data-path and TPU-only knobs are left out; they join as the slices
-that read them are ported (ROADMAP.md).
+A copy of the fields of din_tpu/config.py ``Config`` that the serving and
+training slices read, with the same names, defaults and meanings (reference
+config.py:5-116).  TPU-only knobs and those of unported parts are left out;
+they join as the slices that read them are ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple
+import os
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass
 class Config:
-    """Knobs of the serving slice; semantics follow reference config.py."""
+    """Knobs of the ported slices; semantics follow reference config.py."""
 
     dataset_name: str = "volleyball"
 
     # geometry (reference config.py:12-15)
     image_size: Tuple[int, int] = (720, 1280)       # input image H, W
+    batch_size: int = 32                            # train batch size
+    test_batch_size: int = 8                        # eval batch size
     num_boxes: int = 12                             # actors per frame
+
+    # data (reference config.py:22-24); "synthetic" gives the fixture
+    # dataset, the only one ported so far
+    data_path: str = "data/volleyball/videos"
 
     # backbone (reference config.py:36-41)
     backbone: str = "res18"
@@ -29,17 +37,33 @@ class Config:
     out_size: Tuple[int, int] = (87, 157)           # feature map OH, OW
     emb_features: int = 1056                        # backbone channels D
 
-    # classes (reference config.py:44-45)
+    # classes and losses (reference config.py:44-48)
     num_actions: int = 9
     num_activities: int = 8
+    actions_loss_weight: float = 1.0
+    actions_weights: Optional[Sequence[float]] = None  # per-class CE weights
 
     num_frames: int = 3                             # T
     num_features_boxes: int = 1024                  # NFB
 
+    # training (reference config.py:64-72)
     train_random_seed: int = 0
+    train_learning_rate: float = 1e-4
+    lr_plan: Dict[int, float] = dataclasses.field(
+        default_factory=lambda: {41: 1e-5})
     train_dropout_prob: float = 0.3
+    weight_decay: float = 0.0
+    max_epoch: int = 30
+    test_interval_epoch: int = 1
+
+    # experiment control (reference config.py:74-81)
     training_stage: int = 1
+    exp_note: str = "Group-Activity-Recognition"
+    exp_name: Optional[str] = None
     inference_module_name: str = "dynamic_volleyball"
+    # a full stage-2 checkpoint of the port (.pth) to resume from
+    load_stage2model: bool = False
+    stage2model: Optional[str] = None
 
     # Dynamic Inference / DIN (reference config.py:83-97)
     stride: int = 1
@@ -53,13 +77,33 @@ class Config:
     hierarchical_inference: bool = False
     lite_dim: Optional[int] = None
 
-    # dtype of the backbone's convolutions; the head runs in float32
+    # SACRF + BiUTE's halting loss weight (reference config.py:102-103)
+    halting_penalty: float = 1e-4
+
+    # dtype of the backbone's convolutions; parameters and the head are f32
     compute_dtype: str = "bfloat16"
     frame_chunk: Optional[int] = None    # frames per backbone micro-batch
+    result_root: str = "result"
+
+    # derived by init_config()
+    result_path: Optional[str] = None
+    log_path: Optional[str] = None
 
     def __post_init__(self):
         if self.dataset_name not in ("volleyball", "collective"):
             raise ValueError(f"unknown dataset {self.dataset_name!r}")
+
+    def init_config(self, need_new_folder: bool = True) -> "Config":
+        """``result/<exp_name>/log.txt`` (reference config.py:107-116)."""
+        if self.exp_name is None:
+            time_str = time.strftime("%Y-%m-%d_%H-%M-%S", time.localtime())
+            self.exp_name = "[%s_stage%d]<%s>" % (
+                self.exp_note, self.training_stage, time_str)
+        self.result_path = os.path.join(self.result_root, self.exp_name)
+        self.log_path = os.path.join(self.result_path, "log.txt")
+        if need_new_folder:
+            os.makedirs(self.result_path, exist_ok=True)
+        return self
 
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)
@@ -75,3 +119,15 @@ class Config:
         if len(ks) == 2 and all(isinstance(v, int) for v in ks):
             return [tuple(ks)]
         return [tuple(k) for k in ks]
+
+    @property
+    def action_weight_list(self) -> Optional[List[float]]:
+        """actions_weights flattened: the reference scripts pass a nested
+        list ``[[...]]`` (scripts/train_volleyball_stage1.py:34)."""
+        w = self.actions_weights
+        if w is None:
+            return None
+        w = list(w)
+        if len(w) and isinstance(w[0], (list, tuple)):
+            w = list(w[0])
+        return [float(v) for v in w]

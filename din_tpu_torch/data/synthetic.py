@@ -1,9 +1,65 @@
-"""Synthetic request fixtures (numpy copy of din_tpu/data/synthetic.py
-``make_synthetic_batch``, lines 52-80)."""
+"""Synthetic clips (numpy copy of din_tpu/data/synthetic.py
+``SyntheticDataset``, lines 8-49, and ``make_synthetic_batch``, lines
+52-80, and of ``return_dataset``'s synthetic branch, din_tpu/data/
+datasets.py:16-18).  The same numpy draws in the same order, so the port
+and the JAX package see identical clips for the same seed and index."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+class SyntheticDataset:
+    """Deterministic random clips with the schema of the real datasets:
+    item ``index`` is drawn from ``RandomState(seed * 100003 + index)``."""
+
+    def __init__(self, cfg, size=64, is_training=True, seed=0):
+        self.cfg = cfg
+        self.size = size
+        self.is_training = is_training
+        self.seed = seed
+        self.T = 1 if (cfg.training_stage == 1 and is_training) else \
+            cfg.num_frames
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, index):
+        cfg = self.cfg
+        rng = np.random.RandomState(self.seed * 100003 + index)
+        H, W = cfg.image_size
+        OH, OW = cfg.out_size
+        N = cfg.num_boxes
+        T = self.T
+        images = rng.randint(0, 255, (T, H, W, 3)).astype(np.uint8)
+        x1 = rng.uniform(0, max(OW - 2, 1), (T, N))
+        y1 = rng.uniform(0, max(OH - 2, 1), (T, N))
+        w = rng.uniform(0.5, 2.0, (T, N))
+        h = rng.uniform(0.5, 2.0, (T, N))
+        boxes = np.stack([x1, y1, x1 + w, y1 + h], -1).astype(np.float32)
+        actions = rng.randint(0, cfg.num_actions, (T, N)).astype(np.int32)
+        activities = np.full((T,), rng.randint(cfg.num_activities),
+                             np.int32)
+        sample = {"images": images, "boxes": boxes, "actions": actions,
+                  "activities": activities}
+        if cfg.dataset_name == "collective":
+            n_valid = rng.randint(2, N + 1)
+            boxes[:, n_valid:] = 0.0
+            actions[:, n_valid:] = -1
+            sample["bboxes_num"] = np.full((T,), n_valid, np.int32)
+        return sample
+
+
+def return_dataset(cfg):
+    """(train_set, val_set) for ``cfg.data_path == "synthetic"``, as the JAX
+    package builds them; the real Volleyball and Collective loaders are not
+    ported yet."""
+    if cfg.data_path != "synthetic":
+        raise NotImplementedError(
+            f"data_path {cfg.data_path!r}: only 'synthetic' is ported; the "
+            f"real-data loaders wait for the datasets (ROADMAP.md)")
+    return (SyntheticDataset(cfg, is_training=True, seed=1),
+            SyntheticDataset(cfg, size=16, is_training=False, seed=2))
 
 
 def make_synthetic_batch(cfg, batch_size, rng=None):

@@ -1,0 +1,65 @@
+"""Training entry point of the port (port of din_tpu/experiments/run.py).
+
+    python -m din_tpu_torch.experiments.run \
+        --preset volleyball_stage2_dynamic --data-path synthetic \
+        --max-epoch 1 --max-steps-per-epoch 3
+
+Trains on the card unless ``--device cpu`` is given (with no card it
+raises).  Writes ``<result-root>/<exp-name>/log.txt`` and one
+``stage2_epoch{E}_{acc}%.pth`` per eval; ``--stage2-model-path`` resumes
+from such a file (params, Adam state and epoch).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from din_tpu_torch.experiments.presets import PRESETS
+
+
+def config_from_args(argv=None):
+    """(cfg, args) of the command line."""
+    p = argparse.ArgumentParser(description="din_tpu_torch training")
+    p.add_argument("--preset", required=True, choices=sorted(PRESETS))
+    p.add_argument("--data-path", default=None)
+    p.add_argument("--max-epoch", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--max-steps-per-epoch", type=int, default=None)
+    p.add_argument("--stage2-model-path", default=None,
+                   help="stage-2 .pth of the port to resume from")
+    p.add_argument("--result-root", default=None)
+    p.add_argument("--exp-name", default=None)
+    p.add_argument("--device", default=None,
+                   help="default: the card (cuda); 'cpu' only when asked")
+    args = p.parse_args(argv)
+
+    cfg = PRESETS[args.preset]()
+    overrides = {}
+    if args.data_path is not None:
+        overrides["data_path"] = args.data_path
+    if args.max_epoch is not None:
+        overrides["max_epoch"] = args.max_epoch
+    if args.batch_size is not None:
+        overrides["batch_size"] = args.batch_size
+    if args.stage2_model_path:
+        overrides["stage2model"] = args.stage2_model_path
+        overrides["load_stage2model"] = True
+    if args.result_root:
+        overrides["result_root"] = args.result_root
+    if args.exp_name:
+        overrides["exp_name"] = args.exp_name
+    return cfg.replace(**overrides), args
+
+
+def main(argv=None):
+    from din_tpu_torch.train.engine import train_net
+
+    cfg, args = config_from_args(argv)
+    best = train_net(cfg, max_steps_per_epoch=args.max_steps_per_epoch,
+                     device=args.device)
+    print("Best:", {k: v for k, v in best.items() if not hasattr(v, "shape")})
+    return best
+
+
+if __name__ == "__main__":
+    main()

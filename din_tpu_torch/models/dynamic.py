@@ -1,11 +1,13 @@
 """Stage-2 DIN model for volleyball (port of din_tpu/models/dynamic.py
 ``DynamicVolleyball``, ``_lite_bottleneck`` and ``_din_readout``, lines
-41-94; reference infer_model.py:15-234), forward only.
+41-94; reference infer_model.py:15-234).
 
-Backbone in ``cfg.compute_dtype``; the head (``fc_emb_1`` onward) in f32,
-as in the JAX package.  Module names are the reference's, so
-``jax_params_to_state_dict`` output and reference checkpoints load with
-``load_state_dict(strict=True)``.
+Parameters in f32; the backbone computes in ``cfg.compute_dtype``, the head
+(``fc_emb_1`` onward) in f32, as in the JAX package. In train mode
+``dropout_global`` drops with its own seeded generator; without
+``cfg.train_backbone`` the backbone is frozen (no gradient, no update).
+Module names are the reference's, so ``jax_params_to_state_dict`` output and
+reference checkpoints load with ``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from torch import nn
 from din_tpu_torch.heads.din import MultiDynamicInference
 from din_tpu_torch.models.trunk import auto_chunk, embed_actors, trunk_forward
 from din_tpu_torch.nn.backbones import build_backbone
-from din_tpu_torch.nn.layers import kaiming_normal_, lecun_normal_
+from din_tpu_torch.nn.layers import (SeededDropout, kaiming_normal_,
+                                     lecun_normal_)
 
 
 def _linear(i: int, o: int, generator: torch.Generator) -> nn.Linear:
@@ -64,9 +67,12 @@ class DynamicVolleyball(nn.Module):
             scale_factor=cfg.scale_factor, beta_factor=cfg.beta_factor,
             parallel_inference=cfg.parallel_inference)
         self.dpi_nl = nn.LayerNorm((T, N, dim))
-        self.dropout_global = nn.Dropout(cfg.train_dropout_prob)
+        self.dropout_global = SeededDropout(cfg.train_dropout_prob,
+                                            cfg.train_random_seed + 1)
         self.fc_activities = _linear(dim, cfg.num_activities, generator)
-        self.backbone.to(self.compute_dtype)
+        if not cfg.train_backbone:
+            # the port's trainable_mask (din_tpu/train/optim.py:20-31)
+            self.backbone.requires_grad_(False)
 
     def forward(self, images: torch.Tensor,
                 boxes: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -75,7 +81,8 @@ class DynamicVolleyball(nn.Module):
         chunk = auto_chunk(B * T, H, W, cfg.frame_chunk, cfg.train_backbone)
         roi = trunk_forward(self.backbone, images, boxes,
                             out_size=cfg.out_size, crop_size=cfg.crop_size,
-                            compute_dtype=self.compute_dtype, chunk=chunk)
+                            compute_dtype=self.compute_dtype, chunk=chunk,
+                            train_backbone=cfg.train_backbone)
         feats = embed_actors(roi, self.fc_emb_1, self.nl_emb_1)
         if cfg.lite_dim:
             w = self.point_conv.weight.flatten(1)

@@ -1,13 +1,15 @@
-"""Shared trunk, forward only (port of din_tpu/models/trunk.py ``Trunk`` and
+"""Shared trunk (port of din_tpu/models/trunk.py ``Trunk`` and
 ``EmbedActors``; reference base_model.py:85-121, infer_model.py:161-186).
 
 uint8 frames [B,T,H,W,3] -> [-1,1] in the compute dtype -> backbone in frame
 chunks -> RoIAlign (kernel K1) of every actor box -> channel-major flatten
 [D,K,K] -> ``fc_emb_1`` -> ``nl_emb_1`` -> ReLU.
 
-The JAX trunk scans frame chunks so that training holds one chunk's
-activations; serving keeps the same ``_auto_chunk`` rule, which bounds the
-memory of one backbone call.  The JAX trunk flattens RoI features
+The JAX trunk scans frame chunks, rematerialising each chunk's early
+convs, so that training fits the TPU's 16 GB; the port keeps the same
+``_auto_chunk`` rule, which bounds the memory of one backbone call, and
+keeps every chunk's activations for the backward (no checkpointing: the
+card has 80 GB).  The JAX trunk flattens RoI features
 position-major and ``export_model_state`` permutes ``fc_emb_1`` to the
 reference's channel-major order (ref_export.py:212-218); the port flattens
 channel-major like the reference, so the exported weight loads as it is.
@@ -48,15 +50,18 @@ def auto_chunk(n_frames: int, H: int, W: int, frame_chunk: Optional[int],
 def trunk_forward(backbone: nn.Module, images: torch.Tensor,
                   boxes: torch.Tensor, *, out_size: Tuple[int, int],
                   crop_size: Tuple[int, int], compute_dtype: torch.dtype,
-                  chunk: int) -> torch.Tensor:
+                  chunk: int, train_backbone: bool) -> torch.Tensor:
     """images [B,T,H,W,3] uint8; boxes [B,T,N,4] feature-map coords.
-    Returns RoI features [B,T,N,KH,KW,D] in the compute dtype."""
+    Returns RoI features [B,T,N,KH,KW,D] in the compute dtype.  Without
+    ``train_backbone`` the backbone runs with no gradient (the JAX trunk's
+    ``stop_gradient``, trunk.py:296-297)."""
     B, T, H, W, _ = images.shape
     N = boxes.shape[2]
     frames = images.reshape(B * T, H, W, 3)
-    feats = torch.cat([backbone(prep_images(frames[s:s + chunk],
-                                            compute_dtype))
-                       for s in range(0, B * T, chunk)])
+    with torch.set_grad_enabled(torch.is_grad_enabled() and train_backbone):
+        feats = torch.cat([backbone(prep_images(frames[s:s + chunk],
+                                                compute_dtype))
+                           for s in range(0, B * T, chunk)])
     if tuple(feats.shape[1:3]) != tuple(out_size):
         raise NotImplementedError(
             f"backbone map {tuple(feats.shape[1:3])} != out_size "

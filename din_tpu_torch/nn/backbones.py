@@ -2,17 +2,22 @@
 ``VGG16Backbone``, lines 64-124; reference backbone/backbone.py:88-112).
 
 Layers are ``features.N`` as in torchvision, so reference and exported
-weights load by name.  It runs in ``channels_last`` memory, so every conv
-output is an NHWC map and its five 2x2 pools go through kernel K2 without a
-copy.  The JAX package's folded stem (din_tpu/nn/stem.py) is a device for
-the TPU's 128-lane vregs, equal in value to the canonical stem: the port
-runs the canonical stem, and its pool1, which the TPU ran as
+weights load by name. Parameters stay float32 (the JAX package's
+``param_dtype``); each conv computes in the dtype of the frames it is given
+(the trunk's ``compute_dtype``) with its weight and bias cast to that dtype,
+as flax ``Conv(dtype=bf16)`` casts them, so the cast's backward hands an f32
+gradient to the f32 weight. It runs in ``channels_last`` memory, so every
+conv output is an NHWC map and its five 2x2 pools go through kernels K2 and
+K2b without a copy. The JAX package's folded stem (din_tpu/nn/stem.py) is a
+device for the TPU's 128-lane vregs, equal in value to the canonical stem:
+the port runs the canonical stem, and its pool1, which the TPU ran as
 ``fold_pool_2x2``, is K2 on the 64-channel map.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from din_tpu_torch.nn.layers import MaxPool2x2, lecun_normal_
@@ -39,8 +44,14 @@ class VGG16Backbone(nn.Module):
         self.features = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [F,H,W,3] in the compute dtype; the weights are cast to it."""
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x = self.features(x)
+        for layer in self.features:
+            if isinstance(layer, nn.Conv2d):
+                x = F.conv2d(x, layer.weight.to(x.dtype),
+                             layer.bias.to(x.dtype), padding=layer.padding)
+            else:
+                x = layer(x)
         return x.permute(0, 2, 3, 1).contiguous()
 
 

@@ -2,8 +2,9 @@
 din_tpu/nn/layers.py).
 
 ``torch_conv`` is ``nn.Conv2d`` itself, ``TorchLayerNorm(ndims)`` is
-``nn.LayerNorm`` over the trailing dims, and ``max_pool_torch(x, 2, 2)``
-is ``MaxPool2x2``, which goes through kernel K2.  The initialisers
+``nn.LayerNorm`` over the trailing dims, ``max_pool_torch(x, 2, 2)`` is
+``MaxPool2x2``, which goes through kernels K2 and K2b, and flax
+``nn.Dropout`` is ``SeededDropout``.  The initialisers
 reproduce the JAX package's from a ``torch.Generator``: flax's default
 conv init (lecun normal, truncated), the reference's kaiming-normal Linear
 init, zero biases.
@@ -52,3 +53,29 @@ class MaxPool2x2(nn.Module):
         # NCHW channels_last is NHWC in memory: the permute is free
         y = max_pool_2x2(x.permute(0, 2, 3, 1).contiguous())
         return y.permute(0, 3, 1, 2)
+
+
+class SeededDropout(nn.Module):
+    """flax ``nn.Dropout``: in training, keep each element with probability
+    1-p and scale it by 1/(1-p), else 0.  The mask comes from the module's
+    own ``torch.Generator`` on the input's device, seeded with ``seed`` at
+    first use (JAX draws it from its dropout key, din_tpu/train/engine.py
+    :50-51), never from the global RNG state.  The bits differ from JAX's."""
+
+    def __init__(self, p: float, seed: int):
+        super().__init__()
+        self.p = float(p)
+        self.seed = int(seed)
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None or self.generator.device != x.device:
+            self.generator = torch.Generator(device=x.device).manual_seed(
+                self.seed)
+        keep_prob = 1.0 - self.p
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob,
+                           torch.zeros((), dtype=x.dtype, device=x.device))

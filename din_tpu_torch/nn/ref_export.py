@@ -1,4 +1,5 @@
-"""JAX parameters -> the port's ``state_dict`` (numpy only).
+"""JAX parameters and Adam state -> the port's ``state_dict`` and torch
+Adam state (numpy only).
 
 The port's own copy of what it needs from din_tpu/nn/ref_export.py
 ``export_model_state`` (lines 221-305), for the models the port has: conv
@@ -9,6 +10,12 @@ RoI flatten to the reference's channel-major one (``_fc_emb_inv``,
 lines 212-218).  Keys are the reference's, which are the port's module
 names: ``backbone.features.N``, ``fc_emb_1``, ``nl_emb_1``, ``point_conv``,
 ``point_ln``, ``DPI.DIMlist.{i}.*``, ``dpi_nl``, ``fc_activities``.
+
+``jax_train_state_to_torch`` carries a JAX training run into the port:
+optax ``scale_by_adam``'s ``mu``/``nu``/``count`` become torch Adam's
+``exp_avg``/``exp_avg_sq``/``step`` through the same permutations as the
+weights (both apply the same bias correction); it is the reverse of
+``adopt_adam_moments`` (din_tpu/train/optim.py:63-94).
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 
 def _np(x) -> np.ndarray:
@@ -92,3 +100,59 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg
         out["point_conv.bias"] = _np(pc["bias"])
     _lin(params["fc_activities"], "fc_activities", out)
     return out
+
+
+def _find_state(state, attrs):
+    """The first node of an optax state (nested namedtuples) that has all
+    of ``attrs``."""
+    if all(hasattr(state, a) for a in attrs):
+        return state
+    if isinstance(state, tuple):
+        for s in state:
+            found = _find_state(s, attrs)
+            if found is not None:
+                return found
+    return None
+
+
+def _fill_masked(tree, like):
+    """Moments of frozen parameters are ``optax.MaskedNode``s: zeros of the
+    parameter's shape take their place (they are not carried over)."""
+    if isinstance(tree, dict):
+        return {k: _fill_masked(tree[k], like[k]) for k in like}
+    return tree if hasattr(tree, "shape") else np.zeros_like(np.asarray(like))
+
+
+def jax_train_state_to_torch(params: Dict[str, Any], opt_state, cfg,
+                             model: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer) -> None:
+    """Loads JAX ``params`` into ``model`` and the Adam state of
+    ``opt_state`` (an optax ``make_optimizer`` state) into ``optimizer``, in
+    place: moments, step count and the injected learning rate.  The model's
+    trainable parameters must be the optimizer's."""
+    adam = _find_state(opt_state, ("mu", "nu", "count"))
+    if adam is None:
+        raise ValueError("no scale_by_adam state found in opt_state")
+    model.load_state_dict(
+        {k: torch.from_numpy(np.array(v))
+         for k, v in jax_params_to_state_dict(params, cfg).items()},
+        strict=True)
+    mu = jax_params_to_state_dict(_fill_masked(adam.mu, params), cfg)
+    nu = jax_params_to_state_dict(_fill_masked(adam.nu, params), cfg)
+    step = float(np.asarray(adam.count))
+    trainable = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    for name, p in model.named_parameters():
+        if id(p) not in trainable:
+            continue
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": torch.from_numpy(np.array(mu[name], np.float32)).to(
+                p.device),
+            "exp_avg_sq": torch.from_numpy(np.array(nu[name], np.float32)).to(
+                p.device),
+        }
+    hyper = _find_state(opt_state, ("hyperparams",))
+    if hyper is not None and "learning_rate" in hyper.hyperparams:
+        lr = float(np.asarray(hyper.hyperparams["learning_rate"]))
+        for group in optimizer.param_groups:
+            group["lr"] = lr

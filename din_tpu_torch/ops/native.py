@@ -42,9 +42,16 @@ _SIGNATURES = {
     # x, y, F, H, W, C, dtype, stream
     "din_max_pool_2x2": [_c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64, _c_i64,
                          ctypes.c_int, _c_ptr],
+    # x, g, dx, F, H, W, C, dtype, stream
+    "din_max_pool_2x2_bwd": [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64,
+                             _c_i64, ctypes.c_int, _c_ptr],
     # features, ys, xs, out, B, H, W, C, N, KH, KW, dtype, stream
     "din_roi_align": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64,
                       _c_i64, _c_i64, _c_i64, _c_i64, ctypes.c_int, _c_ptr],
+    # g, ys, xs, df32, B, H, W, C, N, KH, KW, dtype, stream
+    "din_roi_align_bwd": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64,
+                          _c_i64, _c_i64, _c_i64, _c_i64, _c_i64,
+                          ctypes.c_int, _c_ptr],
 }
 
 _lock = threading.Lock()

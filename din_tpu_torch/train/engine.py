@@ -1,0 +1,170 @@
+"""Stage-2 training loop of the port (port of din_tpu/train/engine.py:
+``make_train_step`` :75-119, ``make_eval_step``, ``_epoch_info`` :224-250
+and the epoch loop of ``train_net`` :555-645), on one device.
+
+A step is forward, loss (``compute_losses``), backward and one Adam update.
+Each epoch sets the lr of the plan, pins the loader's shuffle epoch, takes
+its steps (at most ``max_steps_per_epoch``), reports the epoch, and every
+``test_interval_epoch`` epochs runs an eval pass, tracks the best accuracy
+and writes one checkpoint ``stage2_epoch{E}_{acc:.2f}%.pth``.  Loading a
+checkpoint (``cfg.stage2model``) restores params, Adam state and the epoch.
+
+Not ported: preemption and resume of a partial epoch, gradient
+accumulation, the profiler hook, the MAD diagnostic, stage-1 saves and the
+stage-1 backbone graft (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from din_tpu_torch.data.loader import BatchLoader, to_device
+from din_tpu_torch.data.synthetic import return_dataset
+from din_tpu_torch.models.registry import build_model, resolve_device
+from din_tpu_torch.train.checkpoint import load_state, save_state
+from din_tpu_torch.train.losses import compute_losses
+from din_tpu_torch.train.optim import (lr_for_epoch, make_optimizer,
+                                       set_learning_rate)
+from din_tpu_torch.utils.logging import print_log, show_config, show_epoch_info
+from din_tpu_torch.utils.meters import MPCA, Timer
+
+
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               batch: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """One update on a batch already on the model's device; returns the
+    detached metrics (still on the device: reading them waits for it)."""
+    model.train()
+    out = model(batch["images"], batch["boxes"])
+    metrics = compute_losses(out, batch, cfg, cfg.training_stage == 2)
+    optimizer.zero_grad(set_to_none=True)
+    metrics["loss"].backward()
+    optimizer.step()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
+              cfg) -> Dict[str, torch.Tensor]:
+    model.eval()
+    out = model(batch["images"], batch["boxes"])
+    return compute_losses(out, batch, cfg, cfg.training_stage == 2)
+
+
+def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.cpu().numpy() for k, v in metrics.items()}
+
+
+def epoch_info(metric_list: List[Dict[str, np.ndarray]], epoch: int,
+               elapsed: float, num_activities: int,
+               clips: Optional[int] = None) -> Dict:
+    """Mean loss, accuracy, confusion and MPCA over an epoch's steps."""
+    conf = np.zeros((num_activities, num_activities), np.int64)
+    loss_sum, n = 0.0, 0
+    act_c = act_t = actn_c = actn_t = 0
+    for m in metric_list:
+        conf += m["activities_conf"].astype(np.int64)
+        loss_sum += float(m["loss"])
+        n += 1
+        act_c += int(m["activities_correct"])
+        act_t += int(m["activities_total"])
+        if "actions_correct" in m:
+            actn_c += int(m["actions_correct"])
+            actn_t += int(m["actions_total"])
+    info = {
+        "epoch": epoch,
+        "time": elapsed,
+        "loss": loss_sum / max(n, 1),
+        "activities_acc": 100.0 * act_c / max(act_t, 1),
+        "activities_conf": conf,
+        "activities_MPCA": MPCA(np.maximum(conf, 0) + (conf.sum() == 0)),
+    }
+    if actn_t:
+        info["actions_acc"] = 100.0 * actn_c / max(actn_t, 1)
+    if clips and elapsed > 0:
+        info["clips_per_sec"] = clips / elapsed
+    return info
+
+
+def setup_training(cfg, device=None):
+    """(model, optimizer, start_epoch) for ``cfg`` on ``device`` (default:
+    the card): random weights from ``cfg.train_random_seed``, or the state
+    of ``cfg.stage2model`` when ``cfg.load_stage2model`` is set."""
+    device = resolve_device(device)
+    model = build_model(cfg, device=device)
+    optimizer = make_optimizer(cfg, model)
+    start_epoch = 1
+    if cfg.load_stage2model and cfg.stage2model:
+        start_epoch = load_state(cfg.stage2model, model, optimizer) + 1
+    return model, optimizer, start_epoch
+
+
+def run_eval(model, loader: BatchLoader, cfg, epoch: int,
+             device: torch.device) -> Dict:
+    timer = Timer()
+    metrics = [_to_host(eval_step(model, to_device(b, device), cfg))
+               for b in loader]
+    return epoch_info(metrics, epoch, timer.timeit(), cfg.num_activities)
+
+
+def train_net(cfg, max_steps_per_epoch: Optional[int] = None,
+              device=None) -> Dict:
+    """Full stage-2 training driver (reference train_net.py:28-137).
+    Returns the best eval info, with the path of the last checkpoint under
+    ``"checkpoint"``."""
+    device = resolve_device(device)
+    cfg.init_config()
+    show_config(cfg)
+    if cfg.training_stage != 2:
+        raise NotImplementedError("stage-1 training comes with stage 1, "
+                                  "slice 2 of ROADMAP.md")
+    training_set, validation_set = return_dataset(cfg)
+    train_loader = BatchLoader(training_set, cfg.batch_size, shuffle=True,
+                               seed=cfg.train_random_seed)
+    # remainder eval batches are padded (cycled) and masked
+    val_loader = BatchLoader(validation_set, cfg.test_batch_size,
+                             shuffle=False, drop_last=False, pad_last=True)
+    model, optimizer, start_epoch = setup_training(cfg, device)
+    if start_epoch > 1:
+        print_log(cfg.log_path, "Loading stage2 model: %s (resuming at "
+                  "epoch %d)" % (cfg.stage2model, start_epoch))
+    else:
+        print_log(cfg.log_path, "Not loading stage1 or stage2 model.")
+
+    best = {"epoch": 0, "activities_acc": 0.0}
+    for epoch in range(start_epoch, start_epoch + cfg.max_epoch):
+        if epoch in cfg.lr_plan:
+            print_log(cfg.log_path,
+                      "change learning rate: %g" % cfg.lr_plan[epoch])
+        set_learning_rate(optimizer, lr_for_epoch(cfg, epoch))
+        train_loader.set_epoch(epoch)
+        timer = Timer()
+        metrics = []
+        for i, batch in enumerate(train_loader):
+            metrics.append(train_step(model, optimizer,
+                                      to_device(batch, device), cfg))
+            if max_steps_per_epoch and i + 1 >= max_steps_per_epoch:
+                break
+        metrics = [_to_host(m) for m in metrics]     # waits for the device
+        info = epoch_info(metrics, epoch, timer.timeit(), cfg.num_activities,
+                          clips=len(metrics) * cfg.batch_size)
+        show_epoch_info("Train", cfg.log_path, info)
+
+        if epoch % cfg.test_interval_epoch == 0:
+            test_info = run_eval(model, val_loader, cfg, epoch, device)
+            show_epoch_info("Test", cfg.log_path, test_info)
+            if test_info["activities_acc"] > best["activities_acc"]:
+                best = test_info
+            print_log(cfg.log_path,
+                      "Best group activity accuracy: %.2f%% at epoch #%d."
+                      % (best["activities_acc"], best["epoch"]))
+            name = "stage%d_epoch%d_%.2f%%.pth" % (
+                cfg.training_stage, epoch, test_info["activities_acc"])
+            path = os.path.join(cfg.result_path, name)
+            save_state(path, epoch, model, optimizer)
+            best["checkpoint"] = path
+            print_log(cfg.log_path, "model saved to: " + path)
+    return best
