@@ -9,36 +9,54 @@ Phases, each timed, any failure exits non-zero:
    hand-written CUDA kernels with plain nvcc (seconds, one nvcc per source,
    all started together);
 2. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes: K2 ``max_pool_2x2`` and K2b ``max_pool_2x2_bwd`` at the
-   five VGG-16 pool inputs of a 720x1280 frame and an odd 7x9 map (f32 and
-   bf16, random and tie-heavy inputs, a non-contiguous incoming gradient;
-   bit-equal), K1 ``roi_align`` and K1b ``roi_align_bwd`` on a
-   [20,22,40,512] map with 12 boxes per frame including border, outside and
-   zero-area boxes (f32 within 1e-5, resp. 1e-5 of max|df| for K1b, whose
-   atomics add in a varying order; bf16 within one bf16 ulp);
+   paths' shapes: K3 ``fused_stem`` at a flagship chunk [5,720,1280,3] and
+   odd 7x9 maps, one with a large positive conv1_1 bias that exposes the
+   border padding (f32 within 1e-5 of max|y|, bf16 within one bf16 ulp plus
+   that tolerance), and with conv1_2 set to the identity, where its pooled
+   y1 must equal the plain version's bit for bit; K2 ``max_pool_2x2`` and
+   K2b ``max_pool_2x2_bwd`` at the five VGG-16 pool inputs of a 720x1280
+   frame and an odd 7x9 map (f32 and bf16, random and tie-heavy inputs, a
+   non-contiguous incoming gradient; bit-equal), K1 ``roi_align`` and K1b
+   ``roi_align_bwd`` on a [20,22,40,512] map with 12 boxes per frame
+   including border, outside and zero-area boxes (f32 within 1e-5, resp.
+   1e-5 of max|df| for K1b, whose atomics add in a varying order; bf16
+   within one bf16 ulp);
 3. full-width serving of the flagship preset ``volleyball_stage2_dynamic``
    (VGG-16, 720x1280, T=10, N=12, bf16 backbone compute, f32 weights and
    head) through ``Predictor(pad_to=2)`` with seeded random weights: three
    requests (1 clip, 3 clips, the first clip again), checked for shape,
    finite rows summing to 1, the repeated clip's answer, and the launch
-   counts, which are set to 0 just before and read just after;
-4. full-width training of the flagship through ``train_net``: one epoch of
-   3 Adam steps at batch 2 on synthetic data, an eval pass and a checkpoint,
-   with the launch counts of all four kernels (0 just before, read just
-   after, against counts derived from ``auto_chunk``); finite losses; the
-   checkpoint reloaded as ``--stage2-model-path`` gives equal params and
-   Adam state;
+   counts, which are set to 0 just before and read just after; 1-clip
+   latency with K3 and, in turns, with the stem run as the layers it
+   replaces; then the DIN head's TF32 fault: one clip with the head's convs
+   unrepaired under the card's default flags against TF32 off (offsets and
+   posteriors), and repaired under the default flags against TF32 off;
+4. full-width stage 1 (``volleyball_stage1``) through ``train_net``: one
+   epoch of 3 Adam steps at batch 8 (T=1), an eval pass and a stage-1
+   component file, with the launch counts of all five kernels (0 just
+   before, read just after, against counts derived from ``auto_chunk``);
+   ms per step, clips/s and peak memory on one batch; then the flagship
+   stage 2 through ``train_net`` started from that file with
+   ``--stage1-model-path``: ``backbone.*`` and ``fc_emb_1`` equal the
+   file's tensors before the first step, 3 steps at batch 2, an eval pass, a
+   checkpoint, the launch counts; finite losses; the checkpoint reloaded as
+   ``--stage2-model-path`` gives equal params and Adam state;
 5. memorisation: 8 steps on one fixed full-width batch with dropout 0, the
    loss at step 8 below step 1; ms per step after a warm-up step, clips/s,
    peak device memory, and one profiled step's device time split by kernel;
 6. the port on the card (kernels) against the port on the CPU (plain
-   versions), float32 with TF32 off: serving one clip at T=3, 144x160
-   (atol 1e-4), and 3 training steps at that geometry, dropout 0, each
-   taken from the CPU's state (losses rtol 1e-4, parameters within the CPU
-   trajectory test's bounds after a ReLU or pool flip) and along the
-   card's own trajectory (parameters within the same bounds);
+   versions), float32: serving one clip at T=3, 144x160 (atol 1e-4) with
+   TF32 off and with the card's default flags, and 3 training steps at that
+   geometry with TF32 off, dropout 0, each taken from the CPU's state
+   (losses rtol 1e-4, parameters within the CPU trajectory test's bounds
+   after a ReLU or pool flip) and along the card's own trajectory
+   (parameters within the same bounds); the same for stage 1 (logits atol
+   1e-4, 3 steps; along its own trajectory the share of elements beyond
+   2e-5 is reported, not bounded);
 7. each kernel's time at the main paths' shapes beside its bound, its plain
-   version's time and, where one exists, a PyTorch call's time.
+   version's time and, where one exists, a PyTorch call's time (for K3 the
+   unfused cuDNN stem, and the layer route the model takes with a
+   gradient).
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -61,10 +79,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores
-# (both kernels compute in f32 registers)
+# H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor cores (the
+# pool and RoIAlign kernels compute in f32 registers) and the dense bf16
+# tensor-core rate (K3's conv1_2)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
 
 SEED = 0
 
@@ -172,26 +192,128 @@ def no_tf32():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+@contextlib.contextmanager
+def head_convs_unrepaired():
+    """The DIN head's offset and affinity convs as they ran before the
+    repair: plain ``nn.Conv2d`` calls under whatever flags the process has
+    (cuDNN's TF32 default on the card)."""
+    from din_tpu_torch.heads.din import DynamicPersonInference
+
+    saved = DynamicPersonInference.__dict__["_grid_conv"]
+    DynamicPersonInference._grid_conv = staticmethod(
+        lambda conv, x: conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+    try:
+        yield
+    finally:
+        DynamicPersonInference._grid_conv = saved
+
+
+def stem_inputs(shape, dtype, gen: torch.Generator, b0_shift: float = 0.0,
+                device="cuda"):
+    """Frames in [-1,1] (as ``prep_images`` gives them) and VGG-16 stem
+    weights at their init scale (lecun normal: std 1/sqrt(fan_in)), biases
+    ~0.1, conv1_1's shifted by ``b0_shift``; all in ``dtype``."""
+    x = torch.rand(shape, generator=gen, device=device) * 2 - 1
+    w0 = torch.randn((64, 3, 3, 3), generator=gen, device=device) / 27 ** 0.5
+    b0 = torch.randn(64, generator=gen, device=device) * 0.1 + b0_shift
+    w2 = torch.randn((64, 64, 3, 3), generator=gen, device=device) / 24.0
+    b2 = torch.randn(64, generator=gen, device=device) * 0.1
+    return [t.to(dtype) for t in (x, w0, b0, w2, b2)]
+
+
 def check_params(got: dict, want: dict, steps: int, lr: float,
-                 what: str) -> tuple:
+                 what: str, share_bound=0.1) -> tuple:
     """The parameter bounds of tests/test_torch_train.py after a ReLU or
     pool flip: no element more than 2*lr per step apart (Adam moves each by
     about lr whatever its gradient's size), and elementwise 2e-5 for all
-    but 10 % of a tensor's elements.  The flip bound applies: f32 sums on
-    the two devices differ, and a pre-activation, pool window, actor max or
-    DIN sample position that close to a switch takes the other branch.
-    Returns the largest difference and the largest share beyond 2e-5."""
+    but ``share_bound`` (10 %) of a tensor's elements (None: the share is
+    only reported).  The flip bound applies: f32 sums on the two devices
+    differ, and a pre-activation, pool window, actor max or DIN sample
+    position that close to a switch takes the other branch.  Returns the
+    largest difference, the largest share beyond 2e-5 and its tensor."""
     worst = share_worst = 0.0
+    share_name = ""
     for name, w in want.items():
         diff = (got[name].float().cpu() - w.float().cpu()).abs()
         share = float((diff > 2e-5).float().mean())
         worst = max(worst, float(diff.max()))
-        share_worst = max(share_worst, share)
+        if share > share_worst:
+            share_worst, share_name = share, name
         require(float(diff.max()) <= steps * 2 * lr,
                 f"{what}: {name} differs by {float(diff.max())}")
-        require(share <= 0.1,
+        require(share_bound is None or share <= share_bound,
                 f"{what}: {name} has {share:.4f} of elements beyond 2e-5")
-    return worst, share_worst
+    return worst, share_worst, share_name
+
+
+def train_card_vs_cpu(cfg, cpu_model, steps: int = 3,
+                      free_share_bound=0.1) -> dict:
+    """``steps`` training steps of ``cpu_model`` on the CPU and, from copies
+    of it, on the card: once from the CPU's state of each step (forced: one
+    step's loss and update) and once along the card's own trajectory
+    (free), on the batches of ``train_net``'s first epoch.  Forced losses
+    within rtol 1e-4 of the CPU's; parameters within ``check_params``'s
+    bounds, the free trajectory's share beyond 2e-5 within
+    ``free_share_bound``.  Returns the losses and the largest
+    differences."""
+    from din_tpu_torch.data.loader import BatchLoader, to_device
+    from din_tpu_torch.data.synthetic import SyntheticDataset
+    from din_tpu_torch.train.engine import train_step
+    from din_tpu_torch.train.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    forced = copy.deepcopy(cpu_model).to(dev)
+    free = copy.deepcopy(cpu_model).to(dev)
+    cpu_opt = make_optimizer(cfg, cpu_model)
+    forced_opt = make_optimizer(cfg, forced)
+    free_opt = make_optimizer(cfg, free)
+    loader = BatchLoader(SyntheticDataset(cfg, seed=1), cfg.batch_size,
+                         seed=cfg.train_random_seed)
+    loader.set_epoch(1)
+    lr = cfg.train_learning_rate
+    losses = {"cpu": [], "forced": [], "free": []}
+    perr = share = 0.0
+    for b in (b for _, b in zip(range(steps), loader)):
+        forced.load_state_dict(cpu_model.state_dict())
+        forced_opt.load_state_dict(copy.deepcopy(cpu_opt.state_dict()))
+        for name, m, opt, d in (("cpu", cpu_model, cpu_opt, "cpu"),
+                                ("forced", forced, forced_opt, dev),
+                                ("free", free, free_opt, dev)):
+            losses[name].append(float(train_step(
+                m, opt, to_device(b, torch.device(d)), cfg)["loss"]))
+        e, sh, _ = check_params(forced.state_dict(), cpu_model.state_dict(),
+                                1, lr, "card vs CPU, one step")
+        perr, share = max(perr, e), max(share, sh)
+    lerr = max(abs(a - b) / abs(b)
+               for a, b in zip(losses["forced"], losses["cpu"]))
+    require(lerr <= 1e-4, f"training losses card {losses['forced']} vs "
+            f"CPU {losses['cpu']}")
+    free_perr, free_share, free_name = check_params(
+        free.state_dict(), cpu_model.state_dict(), steps, lr,
+        f"card vs CPU, {steps} free steps", free_share_bound)
+    free_lerr = max(abs(a - b) / abs(b)
+                    for a, b in zip(losses["free"], losses["cpu"]))
+    return dict(losses=losses, lerr=lerr, perr=perr, share=share,
+                free_lerr=free_lerr, free_perr=free_perr,
+                free_share=free_share, free_name=free_name,
+                free_share_bound=free_share_bound)
+
+
+def log_train_card_vs_cpu(what: str, cfg, r: dict, steps: int = 3) -> None:
+    log(f"[card-vs-cpu] {what}: training {steps} steps, batch "
+        f"{cfg.batch_size}, {cfg.image_size[0]}x{cfg.image_size[1]} f32 "
+        f"(TF32 off), dropout 0, each step from the CPU's state: losses card "
+        f"{r['losses']['forced']} CPU {r['losses']['cpu']} (max rel diff "
+        f"{r['lerr']:.3g} <= 1e-4); params after one step max |diff| "
+        f"{r['perr']:.3g} (<= 2 lr), largest share beyond 2e-5 "
+        f"{r['share']:.4f} (<= 0.1)")
+    log(f"[card-vs-cpu] {what}: the card's own {steps}-step trajectory: "
+        f"losses {r['losses']['free']} (max rel diff {r['free_lerr']:.3g}, "
+        f"reported, not bounded); params max |diff| {r['free_perr']:.3g} "
+        f"(<= {2 * steps} lr), largest share beyond 2e-5 "
+        f"{r['free_share']:.4f} in {r['free_name']} "
+        + (f"(<= {r['free_share_bound']})" if r['free_share_bound']
+           else "(reported, not bounded)"))
 
 
 def time_host(fn, iters: int) -> list:
@@ -215,9 +337,8 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from din_tpu_torch.data.loader import BatchLoader, to_device
-    from din_tpu_torch.data.synthetic import (SyntheticDataset,
-                                              make_synthetic_batch,
+    from din_tpu_torch.data.loader import to_device
+    from din_tpu_torch.data.synthetic import (make_synthetic_batch,
                                               return_dataset)
     from din_tpu_torch.experiments.predict import Predictor
     from din_tpu_torch.experiments.presets import PRESETS
@@ -225,6 +346,7 @@ def main() -> int:
     from din_tpu_torch.experiments.run import config_from_args
     from din_tpu_torch.models.registry import build_model
     from din_tpu_torch.models.trunk import auto_chunk
+    from din_tpu_torch.nn import backbones
     from din_tpu_torch.ops import native
     from din_tpu_torch.ops.pool import (max_pool_2x2, max_pool_2x2_bwd,
                                         max_pool_2x2_bwd_ref,
@@ -233,13 +355,13 @@ def main() -> int:
                                              roi_align_bwd,
                                              roi_align_bwd_ref,
                                              roi_align_ref)
+    from din_tpu_torch.ops.stem import fused_stem, fused_stem_ref
     from din_tpu_torch.train.engine import (setup_training, train_net,
                                             train_step)
-    from din_tpu_torch.train.optim import make_optimizer
 
     wrappers = {"roi_align": roi_align, "max_pool_2x2": max_pool_2x2,
                 "max_pool_2x2_bwd": max_pool_2x2_bwd,
-                "roi_align_bwd": roi_align_bwd}
+                "roi_align_bwd": roi_align_bwd, "fused_stem": fused_stem}
 
     def reset_counts():
         for w in wrappers.values():
@@ -272,6 +394,51 @@ def main() -> int:
     t0 = time.time()
     gen = torch.Generator().manual_seed(SEED)
     dgen = torch.Generator(device=dev).manual_seed(SEED)
+    stem_err = 0.0
+    for shape, shift in (((5, 720, 1280, 3), 0.0), ((2, 7, 9, 3), 0.0),
+                         ((2, 7, 9, 3), 3.0), ((1, 33, 47, 3), 3.0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = stem_inputs(shape, dtype, dgen, shift)
+            got, ref = fused_stem(*args), fused_stem_ref(*args)
+            torch.cuda.synchronize()
+            require(got.shape == (shape[0], shape[1] // 2, shape[2] // 2, 64),
+                    f"fused_stem shape {tuple(got.shape)}")
+            diff = (got.float() - ref.float()).abs()
+            tol = 1e-5 * ref.float().abs().max().item()
+            what = f"fused_stem {list(shape)} b0+{shift} {dtype}"
+            if dtype == torch.float32:
+                require(diff.max().item() <= tol,
+                        f"{what}: max |err| {diff.max().item()} > {tol}")
+                log(f"[kernels] K3 {what}: max |err| "
+                    f"{diff.max().item():.3g} (<= 1e-5 * max|y| = {tol:.3g})")
+            else:
+                ulp = bf16_ulp(torch.maximum(got.float().abs(),
+                                             ref.float().abs()))
+                excess = (diff - ulp).max().item()
+                require(excess <= tol, f"{what}: more than 1 bf16 ulp + "
+                        f"{tol} off: excess {excess}")
+                stem_err = max(stem_err, diff.max().item())
+                log(f"[kernels] K3 {what}: max |err| "
+                    f"{diff.max().item():.3g}, "
+                    f"{int((diff > ulp).sum())} of {diff.numel()} elements "
+                    f"({float((diff > ulp).float().mean()):.3g}) beyond 1 "
+                    f"bf16 ulp, largest excess {max(excess, 0.0):.3g} (<= "
+                    f"1e-5 * max|y| = {tol:.3g})")
+            del args, got, ref, diff
+    # conv1_2 as the identity (centre tap, no bias): the output is the
+    # pooled y1 itself, which must equal the plain version's bit for bit
+    x, w0, b0, w2, _ = stem_inputs((5, 720, 1280, 3), torch.bfloat16, dgen)
+    w2 = torch.zeros_like(w2)
+    w2[torch.arange(64), torch.arange(64), 1, 1] = 1
+    b2 = torch.zeros(64, dtype=torch.bfloat16, device=dev)
+    got, ref = fused_stem(x, w0, b0, w2, b2), fused_stem_ref(x, w0, b0, w2, b2)
+    torch.cuda.synchronize()
+    y1_mismatch = int((got != ref).sum())
+    require(y1_mismatch == 0, f"fused_stem's y1 differs from the plain "
+            f"version's in {y1_mismatch} pooled values")
+    log(f"[kernels] K3 y1 (conv1_2 = identity) [5, 720, 1280, 3] bf16: "
+        f"equal to the plain version bit for bit ({got.numel()} values)")
+    del x, w0, b0, w2, b2, got, ref
     pool_shapes = [(2, 720, 1280, 64), (2, 360, 640, 128), (2, 180, 320, 256),
                    (2, 90, 160, 512), (2, 45, 80, 512), (2, 7, 9, 3)]
     pool_err = pool_bwd_err = 0.0
@@ -413,31 +580,196 @@ def main() -> int:
     log(f"[serve] posteriors finite, rows sum to 1; repeated clip max |diff| "
         f"{rep:.3g}; clip 0 in the 3-clip request differs by "
         f"{float(np.abs(outs[0][0] - outs[1][0]).max()):.3g}")
-    expect = {"max_pool_2x2": 5 * chunks * padded_calls,
+    expect = {"max_pool_2x2": 4 * chunks * padded_calls,
               "roi_align": padded_calls, "max_pool_2x2_bwd": 0,
-              "roi_align_bwd": 0}
-    log(f"[serve] launches {serve_counts}, expected {expect} (5 pools x "
-        f"{chunks} chunks x {padded_calls} padded calls; no backward)")
+              "roi_align_bwd": 0, "fused_stem": chunks * padded_calls}
+    log(f"[serve] launches {serve_counts}, expected {expect} (per chunk the "
+        f"fused stem and 4 pools; {chunks} chunks x {padded_calls} padded "
+        f"calls; no backward)")
     require(serve_counts == expect and expect["roi_align"] > 0,
             "serving launch counts are off")
     main_boxes = torch.from_numpy(
         np.concatenate([batch["boxes"][:1]] * 2).reshape(-1, cfg.num_boxes,
                                                          4)).to(dev)
-    del predictor, model
+
+    # 1-clip latency with K3, and with the stem as the layers it replaces
+    # (cuDNN convs with bias, ReLU, K2), in turns
+    def layered_stem(x, w0, b0, w2, b2):
+        h = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        h = F.relu(F.conv2d(F.relu(F.conv2d(h, w0, b0, padding=1)), w2, b2,
+                            padding=1))
+        return max_pool_2x2(h.permute(0, 2, 3, 1).contiguous())
+
+    lat = {"K3": [], "layers": []}
+    try:
+        for route in ("K3", "layers", "layers", "K3") * 3:
+            backbones.fused_stem = (fused_stem if route == "K3"
+                                    else layered_stem)
+            lat[route] += time_host(lambda: predictor(*requests[0]), 1)
+    finally:
+        backbones.fused_stem = fused_stem
+    log("[serve] 1-clip requests, 6 each in turns (host clock, "
+        "synchronized): " + "; ".join(
+            f"{k} median {np.median(v):.2f} ms (min {min(v):.2f}, max "
+            f"{max(v):.2f})" for k, v in lat.items()) + "; 'layers' runs the "
+        "stem as cuDNN convs, ReLU and K2 instead of K3")
+
+    # the DIN head's f32 convs under the card's default flags: as they ran
+    # before the repair (TF32) and after it, each against TF32 off
+    offsets = []
+    hooks = [m.register_forward_hook(lambda m, i, o: offsets.append(o))
+             for n, m in model.named_modules() if ".p_conv." in n]
+    clip = [torch.from_numpy(a[:1]).to(dev) for a in (batch["images"],
+                                                      batch["boxes"])]
+    flags = (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+             f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+    def head_run():
+        offsets.clear()
+        with torch.inference_mode():
+            post = torch.softmax(model(*clip)["activities"].float(), -1)
+        return post, torch.cat([o.flatten() for o in offsets])
+
+    with head_convs_unrepaired():
+        before_post, before_off = head_run()
+        with no_tf32():
+            exact_post, exact_off = head_run()
+    after_post, after_off = head_run()
+    for h in hooks:
+        h.remove()
+    tf32_off = (before_off - exact_off).abs().max().item()
+    tf32_post = (before_post - exact_post).abs().max().item()
+    fixed_off = (after_off - exact_off).abs().max().item()
+    fixed_post = (after_post - exact_post).abs().max().item()
+    log(f"[tf32] default flags on the card: {flags}. Flagship, 1 clip, "
+        f"random DIN convs: head convs as before the repair vs TF32 off: "
+        f"offsets (p_conv) max |diff| {tf32_off:.3g} of max |offset| "
+        f"{exact_off.abs().max().item():.3g}, posteriors max |diff| "
+        f"{tf32_post:.3g}; repaired, default flags vs TF32 off: offsets "
+        f"{fixed_off:.3g}, posteriors {fixed_post:.3g}")
+    require(fixed_off <= 1e-6 and fixed_post <= 1e-6,
+            "the repaired head still depends on the TF32 flag")
+    del predictor, model, clip, offsets
     torch.cuda.empty_cache()
     log(f"[serve] done in {time.time() - t0:.2f} s")
 
-    # -- 4. full-width training through train_net -----------------------------
+    # -- 4. full-width stage 1, then stage 2 from it, through train_net -------
     t0 = time.time()
     steps = 3
+
+    def expected_counts(c, n_val):
+        """Launches of ``steps`` training steps (every layer one by one: the
+        stem needs its gradient) and an eval pass over ``n_val`` clips (no
+        gradient: the fused stem and 4 pools per chunk)."""
+        H, W = c.image_size
+        step_frames = c.batch_size * (1 if c.training_stage == 1
+                                      else c.num_frames)
+        step_chunks = step_frames // auto_chunk(
+            step_frames, H, W, c.frame_chunk, c.train_backbone)
+        evals = -(-n_val // c.test_batch_size)
+        eval_frames = c.test_batch_size * c.num_frames
+        eval_chunks = eval_frames // auto_chunk(
+            eval_frames, H, W, c.frame_chunk, c.train_backbone)
+        return ({"max_pool_2x2": 5 * steps * step_chunks
+                 + 4 * evals * eval_chunks,
+                 "roi_align": steps + evals,
+                 "max_pool_2x2_bwd": 5 * steps * step_chunks,
+                 "roi_align_bwd": steps,
+                 "fused_stem": evals * eval_chunks},
+                f"per step 5 pools x {step_chunks} chunk(s) of "
+                f"{step_frames // step_chunks} frames and 1 RoIAlign; eval "
+                f"{evals} calls x {eval_chunks} chunk(s) of the fused stem "
+                f"and 4 pools")
+
+    def log_losses(path: Path, what: str) -> list:
+        losses = [float(v) for v in re.findall(r"Loss: ([-+0-9.eEnaif]+)",
+                                               path.read_text())]
+        require(len(losses) == 2 and all(math.isfinite(v) for v in losses),
+                f"{what}: losses in log.txt: {losses}")
+        return losses
+
     run_root = native.BUILD_DIR.parent / "smoke_runs"
     run_root.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        s1_argv = ["--preset", "volleyball_stage1", "--data-path",
+                   "synthetic", "--max-epoch", "1", "--result-root", tmp,
+                   "--exp-name", "stage1"]
+        s1cfg, _ = config_from_args(s1_argv)
+        _, s1_val = return_dataset(s1cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        tt = time.time()
+        s1_best = train_net(s1cfg, max_steps_per_epoch=steps)
+        torch.cuda.synchronize()
+        s1_s = time.time() - tt
+        s1_counts = read_counts()
+        s1_expect, how = expected_counts(s1cfg, len(s1_val))
+        log(f"[stage1] train_net: volleyball_stage1 at full width "
+            f"({s1cfg.image_size[0]}x{s1cfg.image_size[1]}, batch "
+            f"{s1cfg.batch_size}, T=1 in training, {s1cfg.num_frames} in "
+            f"eval), {steps} steps + eval of {len(s1_val)} clips + component "
+            f"file in {s1_s:.2f} s (host clock, synthetic clips made on the "
+            f"host included); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        log(f"[stage1] launches {s1_counts}, expected {s1_expect} ({how})")
+        require(s1_counts == s1_expect and min(s1_expect.values()) > 0,
+                "stage-1 launch counts are off")
+        s1_losses = log_losses(Path(tmp) / "stage1" / "log.txt", "stage 1")
+        s1_path = s1_best.get("checkpoint")
+        require(s1_path is not None and Path(s1_path).exists()
+                and Path(s1_path).name.startswith("stage1_epoch1_"),
+                f"no stage-1 component file: {s1_path}")
+        comp = torch.load(s1_path, map_location="cpu", weights_only=True)
+        require(sorted(comp) == ["backbone_state_dict",
+                                 "fc_actions_state_dict",
+                                 "fc_activities_state_dict",
+                                 "fc_emb_state_dict"],
+                f"stage-1 file keys {sorted(comp)}")
+        log(f"[stage1] train / eval loss {s1_losses} (finite); component "
+            f"file {Path(s1_path).name} "
+            f"({Path(s1_path).stat().st_size / 2 ** 20:.0f} MiB, keys "
+            f"{sorted(comp)})")
+        model, optimizer, _ = setup_training(s1cfg)
+        s1batch = to_device(make_synthetic_batch(
+            s1cfg, s1cfg.batch_size, rng=np.random.RandomState(SEED + 3)),
+            dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s1_ms = time_host(lambda: train_step(model, optimizer, s1batch,
+                                             s1cfg), 6)
+        s1_step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        s1_warm = sum(s1_ms[1:]) / len(s1_ms[1:])
+        log(f"[stage1] step times {', '.join(f'{v:.1f}' for v in s1_ms)} "
+            f"ms (host clock, synchronized; batch of {s1cfg.batch_size} "
+            f"clips on the card, dropout {s1cfg.train_dropout_prob}); after "
+            f"the warm-up step {s1_warm:.1f} ms per step = "
+            f"{s1cfg.batch_size / s1_warm * 1e3:.3f} clips/s; peak device "
+            f"memory {s1_step_peak:.2f} GiB")
+        del model, optimizer, s1batch
+        torch.cuda.empty_cache()
+        log(f"[stage1] done in {time.time() - t0:.2f} s")
+
+        t0 = time.time()
         argv = ["--preset", "volleyball_stage2_dynamic", "--data-path",
                 "synthetic", "--max-epoch", "1", "--result-root", tmp,
-                "--exp-name", "train"]
+                "--exp-name", "train", "--stage1-model-path", s1_path]
         tcfg, _ = config_from_args(argv)
         _, val_set = return_dataset(tcfg)
+        gmodel, _, _ = setup_training(tcfg)
+        for name, part, key in (("backbone", gmodel.backbone,
+                                 "backbone_state_dict"),
+                                ("fc_emb_1", gmodel.fc_emb_1,
+                                 "fc_emb_state_dict")):
+            state = part.state_dict()
+            require(sorted(state) == sorted(comp[key]) and all(
+                torch.equal(v.cpu(), comp[key][k]) for k, v in state.items()),
+                f"grafted {name} differs from the stage-1 file")
+        log(f"[train] setup_training grafts {s1cfg.exp_note}'s file: "
+            f"backbone.* ({len(comp['backbone_state_dict'])} tensors) and "
+            f"fc_emb_1 equal the file's tensors before the first step")
+        del gmodel, comp
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -448,36 +780,19 @@ def main() -> int:
         train_s = time.time() - tt
         train_counts = read_counts()
         train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        B, T = tcfg.batch_size, tcfg.num_frames
-        H, W = tcfg.image_size
-        step_chunks = (B * T) // auto_chunk(B * T, H, W, tcfg.frame_chunk,
-                                            tcfg.train_backbone)
-        evals = -(-len(val_set) // tcfg.test_batch_size)
-        eval_frames = tcfg.test_batch_size * T
-        eval_chunks = eval_frames // auto_chunk(
-            eval_frames, H, W, tcfg.frame_chunk, tcfg.train_backbone)
-        expect = {"max_pool_2x2": 5 * (steps * step_chunks
-                                       + evals * eval_chunks),
-                  "roi_align": steps + evals,
-                  "max_pool_2x2_bwd": 5 * steps * step_chunks,
-                  "roi_align_bwd": steps}
-        log(f"[train] train_net: flagship at full width, batch {B}, {steps} "
-            f"steps + eval of {len(val_set)} clips + checkpoint in "
-            f"{train_s:.2f} s (host clock, synthetic clips made on the host "
-            f"included); peak device memory {train_peak:.2f} GiB")
-        log(f"[train] launches {train_counts}, expected {expect} (per step "
-            f"5 pools x {step_chunks} chunks of "
-            f"{B * T // step_chunks} frames, 1 RoIAlign; eval {evals} calls "
-            f"x 5 pools x {eval_chunks} chunks); K2b's incoming gradient "
-            f"copied to NHWC {max_pool_2x2_bwd.g_copies} times")
+        B = tcfg.batch_size
+        expect, how = expected_counts(tcfg, len(val_set))
+        log(f"[train] train_net: flagship at full width from the stage-1 "
+            f"file, batch {B}, {steps} steps + eval of {len(val_set)} clips "
+            f"+ checkpoint in {train_s:.2f} s (host clock, synthetic clips "
+            f"made on the host included); peak device memory "
+            f"{train_peak:.2f} GiB")
+        log(f"[train] launches {train_counts}, expected {expect} ({how}); "
+            f"K2b's incoming gradient copied to NHWC "
+            f"{max_pool_2x2_bwd.g_copies} times")
         require(train_counts == expect and min(expect.values()) > 0,
                 "training launch counts are off")
-        text = (run_root / tmp / "train" / "log.txt").read_text()
-        train_losses = [float(v) for v in
-                        re.findall(r"Loss: ([-+0-9.eEnaif]+)", text)]
-        require(len(train_losses) == 2 and all(
-            math.isfinite(v) for v in train_losses),
-            f"losses in log.txt: {train_losses}")
+        train_losses = log_losses(Path(tmp) / "train" / "log.txt", "stage 2")
         ckpt = best.get("checkpoint")
         require(ckpt is not None and Path(ckpt).exists(),
                 "no checkpoint written")
@@ -509,7 +824,7 @@ def main() -> int:
 
     # -- 5. memorisation, step time, profile ----------------------------------
     t0 = time.time()
-    mcfg = cfg.replace(train_dropout_prob=0.0)
+    mcfg = cfg.replace(train_dropout_prob=0.0, load_backbone_stage2=False)
     model, optimizer, _ = setup_training(mcfg)
     mbatch = to_device(make_synthetic_batch(
         mcfg, mcfg.batch_size, rng=np.random.RandomState(SEED + 2)), dev)
@@ -549,67 +864,49 @@ def main() -> int:
     t0 = time.time()
     small = cfg.replace(image_size=(144, 160), out_size=(4, 5), num_frames=3,
                         compute_dtype="float32", train_dropout_prob=0.0)
-    with no_tf32():
-        gen = torch.Generator().manual_seed(SEED)
-        cpu_model = build_model(small, device="cpu", generator=gen)
-        _randomize_din(cpu_model, gen)
-        clip = make_synthetic_batch(small, 1,
-                                    rng=np.random.RandomState(SEED + 1))
-        on_card = Predictor(small, copy.deepcopy(cpu_model))(
-            clip["images"], clip["boxes"])["activities"]
-        on_cpu = Predictor(small, cpu_model, device="cpu")(
-            clip["images"], clip["boxes"])["activities"]
+    gen = torch.Generator().manual_seed(SEED)
+    cpu_model = build_model(small, device="cpu", generator=gen)
+    _randomize_din(cpu_model, gen)
+    clip = make_synthetic_batch(small, 1, rng=np.random.RandomState(SEED + 1))
+    on_cpu = Predictor(small, cpu_model, device="cpu")(
+        clip["images"], clip["boxes"])["activities"]
+    for what, flags in (("TF32 off", no_tf32),
+                        ("the card's default flags", contextlib.nullcontext)):
+        with flags():
+            on_card = Predictor(small, copy.deepcopy(cpu_model))(
+                clip["images"], clip["boxes"])["activities"]
         err = float(np.abs(on_card - on_cpu).max())
-        require(err <= 1e-4, f"card vs CPU max |diff| {err} > 1e-4")
-        log(f"[card-vs-cpu] serving 1 clip T=3 144x160 f32 (TF32 off): max "
+        require(err <= 1e-4, f"card vs CPU ({what}) max |diff| {err} > 1e-4")
+        log(f"[card-vs-cpu] serving 1 clip T=3 144x160 f32 ({what}): max "
             f"|diff| of posteriors {err:.3g} (<= 1e-4); card "
             f"{np.round(on_card[0], 4)}")
+    with no_tf32():
+        r = train_card_vs_cpu(small, cpu_model)
+    log_train_card_vs_cpu("stage 2", small, r)
 
-        # each step is taken twice on the card: from the CPU's state of
-        # that step (forced: one step's loss and update) and along the
-        # card's own trajectory (free)
-        forced = copy.deepcopy(cpu_model).to(dev)
-        free = copy.deepcopy(cpu_model).to(dev)
-        cpu_opt = make_optimizer(small, cpu_model)
-        forced_opt = make_optimizer(small, forced)
-        free_opt = make_optimizer(small, free)
-        loader = BatchLoader(SyntheticDataset(small, seed=1),
-                             small.batch_size, seed=small.train_random_seed)
-        loader.set_epoch(1)
-        lr = small.train_learning_rate
-        losses = {"cpu": [], "forced": [], "free": []}
-        perr = share = 0.0
-        for b in (b for _, b in zip(range(3), loader)):
-            forced.load_state_dict(cpu_model.state_dict())
-            forced_opt.load_state_dict(copy.deepcopy(cpu_opt.state_dict()))
-            for name, m, opt, d in (("cpu", cpu_model, cpu_opt, "cpu"),
-                                    ("forced", forced, forced_opt, dev),
-                                    ("free", free, free_opt, dev)):
-                losses[name].append(float(train_step(
-                    m, opt, to_device(b, torch.device(d)), small)["loss"]))
-            e, sh = check_params(forced.state_dict(), cpu_model.state_dict(),
-                                 1, lr, "card vs CPU, one step")
-            perr, share = max(perr, e), max(share, sh)
-        lerr = max(abs(a - b) / abs(b)
-                   for a, b in zip(losses["forced"], losses["cpu"]))
-        require(lerr <= 1e-4, f"training losses card {losses['forced']} vs "
-                f"CPU {losses['cpu']}")
-        free_perr, free_share = check_params(
-            free.state_dict(), cpu_model.state_dict(), 3, lr,
-            "card vs CPU, 3 free steps")
-        free_lerr = max(abs(a - b) / abs(b)
-                        for a, b in zip(losses["free"], losses["cpu"]))
-    log(f"[card-vs-cpu] training 3 steps, batch {small.batch_size}, T=3 "
-        f"144x160 f32 (TF32 off), dropout 0, each step from the CPU's "
-        f"state: losses card {losses['forced']} CPU {losses['cpu']} (max "
-        f"rel diff {lerr:.3g} <= 1e-4); params after one step max |diff| "
-        f"{perr:.3g} (<= 2 lr), largest share beyond 2e-5 {share:.4f} "
-        f"(<= 0.1)")
-    log(f"[card-vs-cpu] the card's own 3-step trajectory: losses "
-        f"{losses['free']} (max rel diff {free_lerr:.3g}, reported, not "
-        f"bounded); params max |diff| {free_perr:.3g} (<= 6 lr), largest "
-        f"share beyond 2e-5 {free_share:.4f} (<= 0.1)")
-    del cpu_model, forced, free
+    small1 = PRESETS["volleyball_stage1"]().replace(
+        image_size=(144, 160), out_size=(4, 5), num_frames=3, batch_size=4,
+        compute_dtype="float32", train_dropout_prob=0.0)
+    gen = torch.Generator().manual_seed(SEED)
+    cpu_model = build_model(small1, device="cpu", generator=gen)
+    clip = [torch.from_numpy(a) for a in (clip["images"], clip["boxes"])]
+    with no_tf32():
+        with torch.no_grad():
+            on_card = copy.deepcopy(cpu_model).to(dev)(
+                *(t.to(dev) for t in clip))
+            on_cpu = cpu_model(*clip)
+        err = max((on_card[k].cpu() - on_cpu[k]).abs().max().item()
+                  for k in on_cpu)
+        require(err <= 1e-4, f"stage 1 card vs CPU max |diff| {err} > 1e-4")
+        log(f"[card-vs-cpu] stage 1, eval forward of 1 clip T=3 144x160 f32 "
+            f"(TF32 off): max |diff| of action and activity logits "
+            f"{err:.3g} (<= 1e-4)")
+        # stage 1's free trajectory: the share is reported (a flip moves
+        # conv1_1's few gradient sums, and Adam turns each sign change into
+        # a 2 lr step), the 2 lr per step bound holds
+        r = train_card_vs_cpu(small1, cpu_model, free_share_bound=None)
+    log_train_card_vs_cpu("stage 1", small1, r)
+    del cpu_model, clip, on_card, on_cpu
     torch.cuda.empty_cache()
     log(f"[card-vs-cpu] done in {time.time() - t0:.2f} s")
 
@@ -713,13 +1010,46 @@ def main() -> int:
         f"{k1b_bare:.4f} ms), bound {k1b_bound:.5f} ms "
         f"({k1b_bytes / 1e6:.2f} MB), plain {k1b_plain:.4f} ms, no single "
         f"PyTorch call computes it")
+
+    # K3 at one serving chunk; the yardsticks: the unfused cuDNN stem in
+    # bf16 channels_last, and the route the model takes when the stem
+    # needs its gradient (cuDNN convs with bias, ReLU, K2)
+    sx, sw0, sb0, sw2, sb2 = stem_inputs((chunk, H, W, 3), torch.bfloat16,
+                                         dgen)
+    xn = sx.permute(0, 3, 1, 2)
+    k3_ms = time_cuda(lambda: fused_stem(sx, sw0, sb0, sw2, sb2), 20, flush)
+    k3_plain = time_cuda(lambda: fused_stem_ref(sx, sw0, sb0, sw2, sb2), 5,
+                         flush)
+    k3_lib = time_cuda(lambda: F.max_pool2d(F.relu(F.conv2d(F.relu(
+        F.conv2d(xn, sw0, sb0, padding=1)), sw2, sb2, padding=1)), 2), 20,
+        flush)
+    xl = xn.contiguous(memory_format=torch.channels_last)
+    k3_layers = time_cuda(lambda: max_pool_2x2(F.relu(F.conv2d(F.relu(
+        F.conv2d(xl, sw0, sb0, padding=1)), sw2, sb2, padding=1)).permute(
+        0, 2, 3, 1).contiguous()), 20, flush)
+    k3_ops = 2 * chunk * H * W * 64 * (27 + 576)
+    k3_bytes = (sx.numel() + chunk * (H // 2) * (W // 2) * 64 + sw0.numel()
+                + sb0.numel() + sw2.numel() + sb2.numel()) * sx.element_size()
+    k3_bound = max(k3_ops / BF16_TENSOR_FLOPS_PER_S,
+                   k3_bytes / HBM_BYTES_PER_S) * 1e3
+    k3_by = ("operations" if k3_ops / BF16_TENSOR_FLOPS_PER_S
+             >= k3_bytes / HBM_BYTES_PER_S else "bytes")
+    log(f"[times] K3 {[chunk, H, W, 3]} bf16 -> {[chunk, H // 2, W // 2, 64]}:"
+        f" kernel {k3_ms:.4f} ms ({k3_ops / k3_ms / 1e9:.1f} TFLOP/s), bound "
+        f"{k3_bound:.4f} ms ({k3_ops / 1e9:.1f} GFLOP at the dense bf16 rate, "
+        f"{k3_bytes / 1e6:.1f} MB; bound by {k3_by}), plain {k3_plain:.4f} "
+        f"ms, unfused cuDNN stem (conv, ReLU x2, F.max_pool2d) {k3_lib:.4f} "
+        f"ms, the model's layer route (cuDNN convs, ReLU, K2) "
+        f"{k3_layers:.4f} ms")
+    del sx, sw0, sb0, sw2, sb2, xn, xl
     log(f"[times] done in {time.time() - t0:.2f} s")
     log(f"[total] {time.time() - t_all:.1f} s")
 
     def launches(name):
         return {"launches": train_counts[name],
                 "launches_by_path": {"serve": serve_counts[name],
-                                     "train": train_counts[name]}}
+                                     "train": train_counts[name],
+                                     "stage1": s1_counts[name]}}
 
     kernels = [
         {"name": "roi_align", "route": "cuda",
@@ -747,6 +1077,12 @@ def main() -> int:
          **launches("roi_align_bwd"), "max_abs_err": roi_bwd_err,
          "ms": k1b_ms, "plain_ms": k1b_plain, "bound_ms": k1b_bound,
          "bound_by": "bytes", "library_ms": None},
+        {"name": "fused_stem", "route": "cuda",
+         "source": "din_tpu_torch/csrc/fused_stem.cu",
+         "replaces": "din_tpu/ops/stem_kernel.py:68",
+         **launches("fused_stem"), "max_abs_err": stem_err, "ms": k3_ms,
+         "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": k3_lib},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -61,6 +61,11 @@ class Config:
     exp_note: str = "Group-Activity-Recognition"
     exp_name: Optional[str] = None
     inference_module_name: str = "dynamic_volleyball"
+    # stage 2 starts from a stage-1 component file (.pth, the reference's
+    # base_model.py:46-54 layout): its backbone and fc_emb are grafted
+    # (reference config.py:78,97; din_tpu/config.py:94,113)
+    stage1_model_path: str = ""
+    load_backbone_stage2: bool = False
     # a full stage-2 checkpoint of the port (.pth) to resume from
     load_stage2model: bool = False
     stage2model: Optional[str] = None

@@ -1,6 +1,12 @@
 """Presets of the port (copy of din_tpu/experiments/presets.py, the fields
-the serving and training slices read).  Other presets join with their
-models."""
+the ported slices read).  Other presets join with their models.
+
+The flagship starts stage 2 from the stage-1 backbone, as in the JAX
+package (presets.py:43,50), but from a ``.pth`` in the reference's stage-1
+component layout, which ``train_net`` writes for ``volleyball_stage1``
+(the port cannot read the JAX package's msgpack ``.ckpt``).  A missing
+stage-1 file raises; pass ``load_backbone_stage2=False`` to start from
+random weights."""
 
 from __future__ import annotations
 
@@ -18,15 +24,29 @@ def preset(name):
     return wrap
 
 
+@preset("volleyball_stage1")
+def volleyball_stage1() -> Config:
+    """scripts/train_volleyball_stage1.py:1-36 (VGG16)."""
+    return Config("volleyball").replace(
+        training_stage=1, train_backbone=True, backbone="vgg16",
+        image_size=(720, 1280), out_size=(22, 40), emb_features=512,
+        batch_size=8, test_batch_size=1, num_frames=1,
+        train_learning_rate=1e-4, lr_plan={30: 5e-5, 60: 2e-5, 90: 1e-5},
+        max_epoch=120,
+        actions_weights=[[1., 1., 2., 3., 1., 2., 2., 0.2, 1.]],
+        exp_note="Volleyball_stage1")
+
+
 @preset("volleyball_stage2_dynamic")
 def volleyball_stage2_dynamic() -> Config:
     """scripts/train_volleyball_stage2_dynamic.py:1-55 (vgg16, lite 128)."""
     return Config("volleyball").replace(
         inference_module_name="dynamic_volleyball", training_stage=2,
         train_backbone=True, test_interval_epoch=1, backbone="vgg16",
-        out_size=(22, 40), emb_features=512, group=1, stride=1,
-        ST_kernel_size=((3, 3),), dynamic_sampling=True, sampling_ratio=[1],
-        lite_dim=128, scale_factor=True, beta_factor=False,
+        stage1_model_path="result/basemodel_VD_vgg16.pth",
+        load_backbone_stage2=True, out_size=(22, 40), emb_features=512,
+        group=1, stride=1, ST_kernel_size=((3, 3),), dynamic_sampling=True,
+        sampling_ratio=[1], lite_dim=128, scale_factor=True, beta_factor=False,
         hierarchical_inference=False, parallel_inference=False,
         train_dropout_prob=0.3, batch_size=2, test_batch_size=1,
         num_frames=10, train_learning_rate=1e-4, lr_plan={11: 1e-5},

@@ -8,9 +8,9 @@ seeded random weights, warms ``Predictor`` up with two requests, then traces
 ``--requests`` requests of ``--clips`` clips.  Prints the wall time per
 request, the device's busy share (summed device time of all kernels and
 copies over the traced wall time) and that device time split into cuDNN
-convolutions, K2 ``max_pool_2x2``, K1 ``roi_align`` and the rest, then the
-top device entries.  Needs a card; prints "not measured" where the profiler
-records no device time.
+convolutions, K3 ``fused_stem``, K2 ``max_pool_2x2``, K1 ``roi_align`` and
+the rest, then the top device entries.  Needs a card; prints "not measured"
+where the profiler records no device time.
 """
 
 from __future__ import annotations
@@ -63,6 +63,7 @@ def main(argv=None):
     def kernels(name):
         return sum(e.self_device_time_total for e in device if name in e.key)
 
+    k3_us = kernels("fused_stem_kernel")
     k2_us, k1_us = kernels("max_pool_2x2_kernel"), kernels("roi_align_kernel")
     n = args.requests
     print(f"{n} requests of {args.clips} clip(s), pad_to={args.pad_to}: "
@@ -73,8 +74,9 @@ def main(argv=None):
     print(f"device busy {busy_us / n / 1e3:.3f} ms per request = "
           f"{busy_us / wall_us:.3f} of wall (idle share "
           f"{1 - busy_us / wall_us:.3f})")
-    rest = busy_us - conv_us - k2_us - k1_us
-    for name, us in (("cuDNN convolutions", conv_us), ("K2 max_pool_2x2", k2_us),
+    rest = busy_us - conv_us - k3_us - k2_us - k1_us
+    for name, us in (("cuDNN convolutions", conv_us),
+                     ("K3 fused_stem", k3_us), ("K2 max_pool_2x2", k2_us),
                      ("K1 roi_align", k1_us), ("rest", rest)):
         print(f"  {name:20s} {us / n / 1e3:9.3f} ms per request "
               f"({us / busy_us:.3f} of device time)")

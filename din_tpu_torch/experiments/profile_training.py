@@ -3,11 +3,12 @@
     python -m din_tpu_torch.experiments.profile_training [--steps 2]
 
 Builds the flagship preset ``volleyball_stage2_dynamic`` at full width with
-seeded random weights and Adam, takes two warm-up steps on one synthetic
-batch of ``batch_size`` clips, then traces ``--steps`` steps on it.  Prints
-the wall time per step, the device's busy share (summed device time of all
-kernels and copies over the traced wall time, and so its idle share) and
-that device time split into cuDNN forward, dgrad and wgrad convolutions,
+seeded random weights (no stage-1 graft) and Adam, takes two warm-up steps
+on one synthetic batch of ``batch_size`` clips, then traces ``--steps``
+steps on it.  Prints the wall time per step, the device's busy share
+(summed device time of all kernels and copies over the traced wall time,
+and so its idle share) and that device time split into cuDNN forward, dgrad
+and wgrad convolutions, K3 (fused stem, in gradient-free forwards only),
 K2 / K2b (max-pool forward / backward), K1 / K1b (RoIAlign forward /
 backward) and the rest (elementwise passes, the optimizer, copies), then
 the top device entries.  Needs a card; prints "not measured" where the
@@ -27,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 # kernel-name substrings of each category; the first match wins
 CATEGORIES = (
+    ("K3 fused_stem", ("fused_stem_kernel",)),
     ("K2b max_pool_2x2_bwd", ("max_pool_2x2_bwd_kernel",)),
     ("K2 max_pool_2x2", ("max_pool_2x2_kernel",)),
     ("K1b roi_align_bwd", ("roi_align_bwd_kernel",)),
@@ -97,7 +99,8 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=2)
     args = p.parse_args(argv)
 
-    cfg = PRESETS["volleyball_stage2_dynamic"]()
+    cfg = PRESETS["volleyball_stage2_dynamic"]().replace(
+        load_backbone_stage2=False)
     model, optimizer, _ = setup_training(cfg)
     dev = next(model.parameters()).device
     batch = to_device(make_synthetic_batch(

@@ -1,13 +1,21 @@
 """Training entry point of the port (port of din_tpu/experiments/run.py).
 
+    python -m din_tpu_torch.experiments.run --preset volleyball_stage1 \
+        --data-path synthetic --max-epoch 1 --max-steps-per-epoch 3 \
+        --exp-name s1
     python -m din_tpu_torch.experiments.run \
         --preset volleyball_stage2_dynamic --data-path synthetic \
-        --max-epoch 1 --max-steps-per-epoch 3
+        --max-epoch 1 --max-steps-per-epoch 3 \
+        --stage1-model-path "result/s1/stage1_epoch1_<acc>%.pth"
 
 Trains on the card unless ``--device cpu`` is given (with no card it
-raises).  Writes ``<result-root>/<exp-name>/log.txt`` and one
-``stage2_epoch{E}_{acc}%.pth`` per eval; ``--stage2-model-path`` resumes
-from such a file (params, Adam state and epoch).
+raises).  Writes ``<result-root>/<exp-name>/log.txt`` and, per eval, one
+``stage2_epoch{E}_{acc}%.pth`` (stage 2) or, at a best or tied accuracy,
+one stage-1 component file ``stage1_epoch{E}_{acc}%.pth`` (stage 1).
+``--stage1-model-path`` names the stage-1 file whose backbone and fc_emb
+stage 2 starts from (the flagship preset grafts one by default);
+``--stage2-model-path`` resumes a stage-2 file instead (params, Adam state
+and epoch), as in the JAX package's run.py:78-83.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ def config_from_args(argv=None):
     p.add_argument("--max-epoch", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--max-steps-per-epoch", type=int, default=None)
+    p.add_argument("--stage1-model-path", default=None,
+                   help="stage-1 component .pth to graft into stage 2")
     p.add_argument("--stage2-model-path", default=None,
                    help="stage-2 .pth of the port to resume from")
     p.add_argument("--result-root", default=None)
@@ -41,9 +51,12 @@ def config_from_args(argv=None):
         overrides["max_epoch"] = args.max_epoch
     if args.batch_size is not None:
         overrides["batch_size"] = args.batch_size
+    if args.stage1_model_path:
+        overrides["stage1_model_path"] = args.stage1_model_path
     if args.stage2_model_path:
         overrides["stage2model"] = args.stage2_model_path
         overrides["load_stage2model"] = True
+        overrides["load_backbone_stage2"] = False
     if args.result_root:
         overrides["result_root"] = args.result_root
     if args.exp_name:

@@ -1,6 +1,7 @@
-"""Model registry (port of din_tpu/models/registry.py).  Only the serving
-slice's model is ported; the others name the ROADMAP.md slice that brings
-them."""
+"""Model registry (port of din_tpu/models/registry.py).  Stage 1 builds the
+dataset's Basenet, stage 2 the ``inference_module_name`` model, as the
+reference's trainer dispatches (train_net_dynamic.py:75-93); models not
+ported yet name the ROADMAP.md slice that brings them."""
 
 from __future__ import annotations
 
@@ -8,8 +9,10 @@ from typing import Optional
 
 import torch
 
+from din_tpu_torch.models.base import BasenetVolleyball
 from din_tpu_torch.models.dynamic import DynamicVolleyball
 
+BASENET_MODELS = {"volleyball": BasenetVolleyball}
 STAGE2_MODELS = {"dynamic_volleyball": DynamicVolleyball}
 
 _SLICE_OF = {
@@ -41,17 +44,23 @@ def build_model(cfg, device=None,
     ``generator`` (seeded from ``cfg.train_random_seed`` by default) and
     puts it on ``device`` (default: the card), in eval mode."""
     device = resolve_device(device)
-    if cfg.training_stage == 1:
-        raise NotImplementedError("stage-1 models come with stage 1, slice 2 "
-                                  "of ROADMAP.md")
-    name = cfg.inference_module_name
-    if name not in STAGE2_MODELS:
-        if name in _SLICE_OF:
-            raise NotImplementedError(
-                f"model {name!r} is not ported yet: it comes with "
-                f"{_SLICE_OF[name]} of ROADMAP.md")
-        raise ValueError(f"unknown model {name!r}")
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train_random_seed)
-    model = STAGE2_MODELS[name](cfg, generator)
+    if cfg.training_stage == 1:
+        if cfg.dataset_name not in BASENET_MODELS:
+            raise NotImplementedError(
+                f"the {cfg.dataset_name} Basenet is not ported yet: it comes "
+                f"with the collective path of ROADMAP.md")
+        model = BASENET_MODELS[cfg.dataset_name](cfg, generator)
+    elif cfg.training_stage == 2:
+        name = cfg.inference_module_name
+        if name not in STAGE2_MODELS:
+            if name in _SLICE_OF:
+                raise NotImplementedError(
+                    f"model {name!r} is not ported yet: it comes with "
+                    f"{_SLICE_OF[name]} of ROADMAP.md")
+            raise ValueError(f"unknown model {name!r}")
+        model = STAGE2_MODELS[name](cfg, generator)
+    else:
+        raise ValueError(f"unknown training stage {cfg.training_stage}")
     return model.to(device).eval()

@@ -72,10 +72,11 @@ def trunk_forward(backbone: nn.Module, images: torch.Tensor,
     return roi.reshape(B, T, N, KH, KW, roi.shape[-1])
 
 
-def embed_actors(roi: torch.Tensor, fc_emb_1: nn.Linear,
-                 nl_emb_1: nn.LayerNorm) -> torch.Tensor:
-    """roi [B,T,N,KH,KW,D] -> ReLU(LN(fc_emb_1(flatten [D,KH,KW]))) in f32
-    (infer_model.py:184-186)."""
+def embed_actors(roi: torch.Tensor, fc_emb: nn.Linear,
+                 nl_emb: Optional[nn.LayerNorm]) -> torch.Tensor:
+    """roi [B,T,N,KH,KW,D] -> ReLU([LN](fc_emb(flatten [D,KH,KW]))) in f32:
+    stage 2 with its LayerNorm (infer_model.py:184-186), stage 1 without
+    (base_model.py:119-120)."""
     B, T, N = roi.shape[:3]
-    x = roi.permute(0, 1, 2, 5, 3, 4).reshape(B, T, N, -1).float()
-    return torch.relu(nl_emb_1(fc_emb_1(x)))
+    x = fc_emb(roi.permute(0, 1, 2, 5, 3, 4).reshape(B, T, N, -1).float())
+    return torch.relu(x if nl_emb is None else nl_emb(x))

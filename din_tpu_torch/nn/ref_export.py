@@ -9,7 +9,9 @@ conv and the DIN convs as ``_pointconv_inv`` / ``_din_inv`` do
 RoI flatten to the reference's channel-major one (``_fc_emb_inv``,
 lines 212-218).  Keys are the reference's, which are the port's module
 names: ``backbone.features.N``, ``fc_emb_1``, ``nl_emb_1``, ``point_conv``,
-``point_ln``, ``DPI.DIMlist.{i}.*``, ``dpi_nl``, ``fc_activities``.
+``point_ln``, ``DPI.DIMlist.{i}.*``, ``dpi_nl``, ``fc_activities``; for a
+stage-1 Basenet ``backbone.features.N``, ``fc_emb``, ``fc_actions``,
+``fc_activities``.
 
 ``jax_train_state_to_torch`` carries a JAX training run into the port:
 optax ``scale_by_adam``'s ``mu``/``nu``/``count`` become torch Adam's
@@ -71,8 +73,10 @@ def _backbone_key(name: str) -> str:
 
 def jax_params_to_state_dict(params: Dict[str, Any], cfg
                              ) -> Dict[str, np.ndarray]:
-    """JAX ``variables['params']`` of a DynamicVolleyball (nested dicts of
-    arrays) -> the port's ``state_dict`` as numpy arrays."""
+    """JAX ``variables['params']`` of a DynamicVolleyball or, at
+    ``cfg.training_stage == 1``, a BasenetVolleyball (nested dicts of arrays)
+    -> the port's ``state_dict`` as numpy arrays.  The stage-1 embedding
+    ``embed/fc_emb_1`` is the Basenet's ``fc_emb`` (ref_export.py:313-334)."""
     K = cfg.crop_size[0]
     D = cfg.emb_features
     out: Dict[str, np.ndarray] = {}
@@ -82,14 +86,16 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg
         _conv(backbone[name], f"backbone.{_backbone_key(name)}", out)
 
     fc = params["embed"]["fc_emb_1"]
+    fc_key = "fc_emb" if cfg.training_stage == 1 else "fc_emb_1"
     kernel = _np(fc["kernel"])                       # [K*K*D, NFB], (i,j,d)
     nfb = kernel.shape[1]
-    out["fc_emb_1.weight"] = kernel.T.reshape(nfb, K, K, D) \
+    out[f"{fc_key}.weight"] = kernel.T.reshape(nfb, K, K, D) \
         .transpose(0, 3, 1, 2).reshape(nfb, -1)
-    out["fc_emb_1.bias"] = _np(fc["bias"])
-    _ln(params["embed"]["nl_emb_1"], "nl_emb_1", out)
+    out[f"{fc_key}.bias"] = _np(fc["bias"])
+    if "nl_emb_1" in params["embed"]:
+        _ln(params["embed"]["nl_emb_1"], "nl_emb_1", out)
 
-    for k, v in params["DPI"].items():
+    for k, v in params.get("DPI", {}).items():
         _din(v, f"DPI.DIMlist.{k.split('_')[1]}.", out)
     for tln in ("dpi_nl", "point_ln"):
         if tln in params:
@@ -98,7 +104,9 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg
         pc = params["point_conv"]
         out["point_conv.weight"] = _np(pc["kernel"]).T[:, :, None, None]
         out["point_conv.bias"] = _np(pc["bias"])
-    _lin(params["fc_activities"], "fc_activities", out)
+    for head in ("fc_actions", "fc_activities"):
+        if head in params:
+            _lin(params[head], head, out)
     return out
 
 

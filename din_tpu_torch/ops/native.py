@@ -52,6 +52,9 @@ _SIGNATURES = {
     "din_roi_align_bwd": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64,
                           _c_i64, _c_i64, _c_i64, _c_i64, _c_i64,
                           ctypes.c_int, _c_ptr],
+    # x, w0, b0, w2, b2, out, F, H, W, dtype, stream
+    "din_fused_stem": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64,
+                       _c_i64, _c_i64, ctypes.c_int, _c_ptr],
 }
 
 _lock = threading.Lock()

@@ -1,17 +1,23 @@
-"""Stage-2 training loop of the port (port of din_tpu/train/engine.py:
-``make_train_step`` :75-119, ``make_eval_step``, ``_epoch_info`` :224-250
-and the epoch loop of ``train_net`` :555-645), on one device.
+"""Training loop of the port, stages 1 and 2 (port of din_tpu/train/
+engine.py: ``make_train_step`` :75-119, ``make_eval_step``, ``_epoch_info``
+:224-250, the weight loading of ``setup_training`` :355-380 and the epoch
+loop of ``train_net`` :555-645), on one device.
 
-A step is forward, loss (``compute_losses``), backward and one Adam update.
-Each epoch sets the lr of the plan, pins the loader's shuffle epoch, takes
-its steps (at most ``max_steps_per_epoch``), reports the epoch, and every
-``test_interval_epoch`` epochs runs an eval pass, tracks the best accuracy
-and writes one checkpoint ``stage2_epoch{E}_{acc:.2f}%.pth``.  Loading a
-checkpoint (``cfg.stage2model``) restores params, Adam state and the epoch.
+A step is forward, loss (``compute_losses``; stage 1 takes per-frame labels,
+stage 2 frame 0's), backward and one Adam update.  Each epoch sets the lr of
+the plan, pins the loader's shuffle epoch, takes its steps (at most
+``max_steps_per_epoch``), reports the epoch, and every
+``test_interval_epoch`` epochs runs an eval pass and tracks the best
+accuracy.  Stage 2 then writes one checkpoint
+``stage2_epoch{E}_{acc:.2f}%.pth``; stage 1 writes its component file
+``stage1_epoch{E}_{acc:.2f}%.pth`` when the accuracy is the best so far or
+ties it.  Stage 2 starts from a stage-1 file (``cfg.load_backbone_stage2``,
+``cfg.stage1_model_path``: backbone and ``fc_emb`` grafted) or else resumes
+a stage-2 checkpoint (``cfg.stage2model``: params, Adam state, epoch).
 
 Not ported: preemption and resume of a partial epoch, gradient
-accumulation, the profiler hook, the MAD diagnostic, stage-1 saves and the
-stage-1 backbone graft (ROADMAP.md).
+accumulation, the profiler hook, the MAD diagnostic, ``test_before_train``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ import torch
 from din_tpu_torch.data.loader import BatchLoader, to_device
 from din_tpu_torch.data.synthetic import return_dataset
 from din_tpu_torch.models.registry import build_model, resolve_device
-from din_tpu_torch.train.checkpoint import load_state, save_state
+from din_tpu_torch.train.checkpoint import (load_backbone_stage2, load_state,
+                                            save_stage1_components,
+                                            save_state)
 from din_tpu_torch.train.losses import compute_losses
 from din_tpu_torch.train.optim import (lr_for_epoch, make_optimizer,
                                        set_learning_rate)
@@ -91,14 +99,19 @@ def epoch_info(metric_list: List[Dict[str, np.ndarray]], epoch: int,
 
 def setup_training(cfg, device=None):
     """(model, optimizer, start_epoch) for ``cfg`` on ``device`` (default:
-    the card): random weights from ``cfg.train_random_seed``, or the state
-    of ``cfg.stage2model`` when ``cfg.load_stage2model`` is set."""
+    the card): random weights from ``cfg.train_random_seed``; in stage 2
+    with the backbone and ``fc_emb_1`` of ``cfg.stage1_model_path`` when
+    ``cfg.load_backbone_stage2`` is set, else the state of
+    ``cfg.stage2model`` when ``cfg.load_stage2model`` is set."""
     device = resolve_device(device)
     model = build_model(cfg, device=device)
     optimizer = make_optimizer(cfg, model)
     start_epoch = 1
-    if cfg.load_stage2model and cfg.stage2model:
-        start_epoch = load_state(cfg.stage2model, model, optimizer) + 1
+    if cfg.training_stage == 2:
+        if cfg.load_backbone_stage2 and cfg.stage1_model_path:
+            load_backbone_stage2(model, cfg.stage1_model_path)
+        elif cfg.load_stage2model and cfg.stage2model:
+            start_epoch = load_state(cfg.stage2model, model, optimizer) + 1
     return model, optimizer, start_epoch
 
 
@@ -112,15 +125,12 @@ def run_eval(model, loader: BatchLoader, cfg, epoch: int,
 
 def train_net(cfg, max_steps_per_epoch: Optional[int] = None,
               device=None) -> Dict:
-    """Full stage-2 training driver (reference train_net.py:28-137).
-    Returns the best eval info, with the path of the last checkpoint under
+    """Full training loop of either stage (reference train_net.py:28-137).
+    Returns the best eval info, with the path of the last file written under
     ``"checkpoint"``."""
     device = resolve_device(device)
     cfg.init_config()
     show_config(cfg)
-    if cfg.training_stage != 2:
-        raise NotImplementedError("stage-1 training comes with stage 1, "
-                                  "slice 2 of ROADMAP.md")
     training_set, validation_set = return_dataset(cfg)
     train_loader = BatchLoader(training_set, cfg.batch_size, shuffle=True,
                                seed=cfg.train_random_seed)
@@ -128,7 +138,11 @@ def train_net(cfg, max_steps_per_epoch: Optional[int] = None,
     val_loader = BatchLoader(validation_set, cfg.test_batch_size,
                              shuffle=False, drop_last=False, pad_last=True)
     model, optimizer, start_epoch = setup_training(cfg, device)
-    if start_epoch > 1:
+    if (cfg.training_stage == 2 and cfg.load_backbone_stage2
+            and cfg.stage1_model_path):
+        print_log(cfg.log_path,
+                  "Loaded stage1 backbone: " + cfg.stage1_model_path)
+    elif start_epoch > 1:
         print_log(cfg.log_path, "Loading stage2 model: %s (resuming at "
                   "epoch %d)" % (cfg.stage2model, start_epoch))
     else:
@@ -164,7 +178,12 @@ def train_net(cfg, max_steps_per_epoch: Optional[int] = None,
             name = "stage%d_epoch%d_%.2f%%.pth" % (
                 cfg.training_stage, epoch, test_info["activities_acc"])
             path = os.path.join(cfg.result_path, name)
-            save_state(path, epoch, model, optimizer)
+            if cfg.training_stage == 2:
+                save_state(path, epoch, model, optimizer)
+            elif test_info["activities_acc"] == best["activities_acc"]:
+                save_stage1_components(path, model)
+            else:
+                continue
             best["checkpoint"] = path
             print_log(cfg.log_path, "model saved to: " + path)
     return best

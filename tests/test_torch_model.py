@@ -123,10 +123,11 @@ def _load(module, state):
 
 
 def test_vgg16_backbone_matches_jax_with_odd_pool5():
-    """Port VGG16Backbone (canonical stem, K2's plain version for all five
-    pools) against the JAX one (folded stem, fold pool) at 48x80, where
-    pool5 sees an odd 3x5 map; float32, atol 1e-5 relative to outputs of
-    order 1e-2..1 (summation order only)."""
+    """Port VGG16Backbone (under no_grad: the fused stem's plain version,
+    then K2's plain version for the other four pools) against the JAX one
+    (folded stem, fold pool) at 48x80, where pool5 sees an odd 3x5 map;
+    float32, atol 1e-5 relative to outputs of order 1e-2..1 (summation
+    order only)."""
     from din_tpu.nn.backbones import VGG16Backbone as JaxVGG
     from din_tpu_torch.nn.backbones import VGG16Backbone
     from din_tpu_torch.nn.ref_export import _backbone_key, _conv

@@ -422,7 +422,8 @@ def test_run_cli_trains_one_step_on_cpu(tmp_path, monkeypatch):
     from din_tpu_torch.experiments import presets, run
     from din_tpu_torch.train.engine import setup_training
 
-    small = dict(_GEOM, train_dropout_prob=0.3, test_batch_size=4)
+    small = dict(_GEOM, train_dropout_prob=0.3, test_batch_size=4,
+                 load_backbone_stage2=False)
     monkeypatch.setitem(presets.PRESETS, "tiny", lambda: PRESETS[
         "volleyball_stage2_dynamic"]().replace(**small))
     args = ["--preset", "tiny", "--data-path", "synthetic",
