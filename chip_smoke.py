@@ -30,7 +30,11 @@ Phases, each timed, any failure exits non-zero:
    latency with K3 and, in turns, with the stem run as the layers it
    replaces; then the DIN head's TF32 fault: one clip with the head's convs
    unrepaired under the card's default flags against TF32 off (offsets and
-   posteriors), and repaired under the default flags against TF32 off;
+   posteriors), and repaired under the default flags against TF32 off; and
+   the same convs' backward: one flagship step's gradients of the head's
+   convs with their backward as before the repair and repaired, under the
+   default flags, against TF32 off, the repaired difference no larger than
+   that between two TF32-off runs (cuDNN's deterministic algorithms);
 4. full-width stage 1 (``volleyball_stage1``) through ``train_net``: one
    epoch of 3 Adam steps at batch 8 (T=1), an eval pass and a stage-1
    component file, with the launch counts of all five kernels (0 just
@@ -46,7 +50,9 @@ Phases, each timed, any failure exits non-zero:
    peak device memory, and one profiled step's device time split by kernel;
 6. the port on the card (kernels) against the port on the CPU (plain
    versions), float32: serving one clip at T=3, 144x160 (atol 1e-4) with
-   TF32 off and with the card's default flags, and 3 training steps at that
+   TF32 off and with the card's default flags; the f32 backbone's conv
+   gradients at that geometry under the default flags, before and after the
+   repair, held as in phase 3; and 3 training steps at that
    geometry with TF32 off, dropout 0, each taken from the CPU's state
    (losses rtol 1e-4, parameters within the CPU trajectory test's bounds
    after a ReLU or pool flip) and along the card's own trajectory
@@ -55,8 +61,9 @@ Phases, each timed, any failure exits non-zero:
    2e-5 is reported, not bounded);
 7. each kernel's time at the main paths' shapes beside its bound, its plain
    version's time and, where one exists, a PyTorch call's time (for K3 the
-   unfused cuDNN stem, and the layer route the model takes with a
-   gradient).
+   unfused cuDNN stem, with K3's time as a ratio to it, and the layer route
+   the model takes with a gradient; for K1 the wrapper and the launch
+   alone).
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -206,6 +213,65 @@ def head_convs_unrepaired():
         yield
     finally:
         DynamicPersonInference._grid_conv = saved
+
+
+@contextlib.contextmanager
+def conv_backward_unrepaired():
+    """The float32 convolutions' backward as it ran before its repair: the
+    forward in IEEE f32, the dgrad, wgrad and bias gradient under whatever
+    flags the process has (cuDNN's TF32 default on the card)."""
+    from din_tpu_torch.utils import precision
+
+    saved = precision.conv2d_grads
+    process_flag = torch.backends.cudnn.allow_tf32
+
+    def grads(*args):
+        inner = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = process_flag
+        try:
+            return saved(*args)
+        finally:
+            torch.backends.cudnn.allow_tf32 = inner
+
+    precision.conv2d_grads = grads
+    try:
+        yield
+    finally:
+        precision.conv2d_grads = saved
+
+
+def tf32_backward_check(run, extra=()) -> dict:
+    """``run()`` returns a dict of gradients.  With cuDNN's deterministic
+    algorithms (so that two runs of one setting agree bit for bit): twice
+    with TF32 off, once under the card's default flags (repaired), once
+    with the f32 convs' backward as before the repair, and once in each
+    ``(name, context)`` of ``extra`` under the default flags.  Returns the
+    largest difference of each against the first TF32-off run, and the
+    gradients' largest magnitude."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with no_tf32():
+            exact = run()
+        with no_tf32():
+            again = run()
+        repaired = run()
+        with conv_backward_unrepaired():
+            unrepaired = run()
+        others = {}
+        for name, context in extra:
+            with context():
+                others[name] = run()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+    def diff(got):
+        return max((got[k] - exact[k]).abs().max().item() for k in exact)
+
+    return dict(noise=diff(again), after=diff(repaired),
+                before=diff(unrepaired),
+                **{k: diff(v) for k, v in others.items()},
+                scale=max(v.abs().max().item() for v in exact.values()))
 
 
 def stem_inputs(shape, dtype, gen: torch.Generator, b0_shift: float = 0.0,
@@ -616,18 +682,31 @@ def main() -> int:
 
     # the DIN head's f32 convs under the card's default flags: as they ran
     # before the repair (TF32) and after it, each against TF32 off
-    offsets = []
-    hooks = [m.register_forward_hook(lambda m, i, o: offsets.append(o))
-             for n, m in model.named_modules() if ".p_conv." in n]
+    from din_tpu_torch.heads.din import DynamicPersonInference
+    p_convs = {id(m) for n, m in model.named_modules() if ".p_conv." in n}
     clip = [torch.from_numpy(a[:1]).to(dev) for a in (batch["images"],
                                                       batch["boxes"])]
     flags = (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
              f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     def head_run():
-        offsets.clear()
-        with torch.inference_mode():
-            post = torch.softmax(model(*clip)["activities"].float(), -1)
+        """Posteriors and the p_conv outputs (offsets) of one clip, through
+        whichever grid conv the head has now."""
+        offsets = []
+        grid_conv = DynamicPersonInference.__dict__["_grid_conv"]
+
+        def recording(conv, x):
+            out = grid_conv.__func__(conv, x)
+            if id(conv) in p_convs:
+                offsets.append(out)
+            return out
+
+        DynamicPersonInference._grid_conv = staticmethod(recording)
+        try:
+            with torch.inference_mode():
+                post = torch.softmax(model(*clip)["activities"].float(), -1)
+        finally:
+            DynamicPersonInference._grid_conv = grid_conv
         return post, torch.cat([o.flatten() for o in offsets])
 
     with head_convs_unrepaired():
@@ -635,8 +714,6 @@ def main() -> int:
         with no_tf32():
             exact_post, exact_off = head_run()
     after_post, after_off = head_run()
-    for h in hooks:
-        h.remove()
     tf32_off = (before_off - exact_off).abs().max().item()
     tf32_post = (before_post - exact_post).abs().max().item()
     fixed_off = (after_off - exact_off).abs().max().item()
@@ -649,7 +726,36 @@ def main() -> int:
         f"{fixed_off:.3g}, posteriors {fixed_post:.3g}")
     require(fixed_off <= 1e-6 and fixed_post <= 1e-6,
             "the repaired head still depends on the TF32 flag")
-    del predictor, model, clip, offsets
+
+    # the same convs' backward: one flagship-geometry step's gradients of
+    # the head's convs (batch of 2 clips, eval mode: dropout off)
+    from din_tpu_torch.train.losses import compute_losses
+    gbatch = to_device(make_synthetic_batch(
+        cfg, 2, rng=np.random.RandomState(SEED + 4)), dev)
+    head_names = [n for n, _ in model.named_parameters()
+                  if ".p_conv." in n or ".scale_conv." in n]
+
+    def head_grads():
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            out = model(gbatch["images"], gbatch["boxes"])
+            compute_losses(out, gbatch, cfg, True)["loss"].backward()
+        params = dict(model.named_parameters())
+        return {n: params[n].grad.detach().clone() for n in head_names}
+
+    hb = tf32_backward_check(head_grads,
+                             [("pre_pr6", head_convs_unrepaired)])
+    model.zero_grad(set_to_none=True)
+    log(f"[tf32] backward, default flags ({flags}), one flagship step of 2 "
+        f"clips, gradients of the head's {len(head_names)} conv tensors "
+        f"(max |g| {hb['scale']:.3g}) against TF32 off: backward as before "
+        f"the repair {hb['before']:.3g}; repaired {hb['after']:.3g}; a "
+        f"second TF32-off run {hb['noise']:.3g}; forward and backward as "
+        f"before the forward's repair {hb['pre_pr6']:.3g} (cuDNN "
+        f"deterministic algorithms)")
+    require(hb["after"] <= hb["noise"],
+            "the repaired head's backward still depends on the TF32 flag")
+    del predictor, model, clip, gbatch
     torch.cuda.empty_cache()
     log(f"[serve] done in {time.time() - t0:.2f} s")
 
@@ -880,6 +986,30 @@ def main() -> int:
         log(f"[card-vs-cpu] serving 1 clip T=3 144x160 f32 ({what}): max "
             f"|diff| of posteriors {err:.3g} (<= 1e-4); card "
             f"{np.round(on_card[0], 4)}")
+    # the f32 backbone's convs' backward under the default flags: one
+    # backward of the backbone from a fixed upstream gradient
+    bb = copy.deepcopy(cpu_model.backbone).to(dev)
+    frames = torch.rand((3, *small.image_size, 3), generator=dgen,
+                        device=dev) * 2 - 1
+    with torch.no_grad():
+        up = torch.randn(bb(frames).shape, generator=dgen, device=dev)
+
+    def backbone_grads():
+        bb.zero_grad(set_to_none=True)
+        bb(frames).backward(up)
+        return {n: p.grad.detach().clone() for n, p in bb.named_parameters()}
+
+    bbr = tf32_backward_check(backbone_grads)
+    log(f"[tf32] backward, default flags, f32 VGG-16 at 3 frames of "
+        f"{small.image_size[0]}x{small.image_size[1]}, gradients of its 26 "
+        f"conv tensors (max |g| {bbr['scale']:.3g}) against TF32 off: as "
+        f"before the repair {bbr['before']:.3g}; repaired {bbr['after']:.3g}; "
+        f"a second TF32-off run {bbr['noise']:.3g} (cuDNN deterministic "
+        f"algorithms)")
+    require(bbr["after"] <= bbr["noise"],
+            "the repaired f32 backbone's backward still depends on the TF32 "
+            "flag")
+    del bb, frames, up
     with no_tf32():
         r = train_card_vs_cpu(small, cpu_model)
     log_train_card_vs_cpu("stage 2", small, r)
@@ -974,20 +1104,21 @@ def main() -> int:
     k1_out = main_boxes.shape[0] * main_boxes.shape[1] * 25 * feats.shape[-1]
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S,
                    11 * k1_out / F32_FLOPS_PER_S) * 1e3
-    # the launch alone, with the sample centres and output made beforehand:
-    # the wrapper's own torch ops (_sample_grid, empty) run on the host
-    ys, xs = (t.contiguous() for t in _sample_grid(main_boxes, crop))
+    # the launch alone, with the output made beforehand: the wrapper's own
+    # work around it (checks, torch.empty) runs on the host
     out = torch.empty((*main_boxes.shape[:2], *crop, feats.shape[-1]),
                       dtype=feats.dtype, device=dev)
     lib, stream = native.library(), native.current_stream(feats)
     k1_bare = time_cuda(lambda: native.check(lib.din_roi_align(
-        feats.data_ptr(), ys.data_ptr(), xs.data_ptr(), out.data_ptr(),
+        feats.data_ptr(), main_boxes.data_ptr(), out.data_ptr(),
         *feats.shape, main_boxes.shape[1], *crop,
         native.DTYPE_BF16, stream), "roi_align"), 100, flush)
     log(f"[times] K1 {list(feats.shape)} bf16 x {main_boxes.shape[1]} boxes: "
-        f"wrapper {k1_ms:.4f} ms (launch alone {k1_bare:.4f} ms), bound "
-        f"{k1_bound:.5f} ms ({k1_bytes / 1e6:.2f} MB), plain "
-        f"{k1_plain:.4f} ms, no single PyTorch call computes it")
+        f"wrapper {k1_ms:.4f} ms (launch alone {k1_bare:.4f} ms; the kernel "
+        f"computes the sample grid), bound {k1_bound:.5f} ms "
+        f"({k1_bytes / 1e6:.2f} MB), plain {k1_plain:.4f} ms, no single "
+        f"PyTorch call computes it")
+    ys, xs = (t.contiguous() for t in _sample_grid(main_boxes, crop))
 
     g = torch.randn(out.shape, generator=dgen, device=dev).bfloat16()
     k1b_ms = time_cuda(lambda: roi_align_bwd(g, main_boxes, (OH, OW),
@@ -1035,12 +1166,13 @@ def main() -> int:
     k3_by = ("operations" if k3_ops / BF16_TENSOR_FLOPS_PER_S
              >= k3_bytes / HBM_BYTES_PER_S else "bytes")
     log(f"[times] K3 {[chunk, H, W, 3]} bf16 -> {[chunk, H // 2, W // 2, 64]}:"
-        f" kernel {k3_ms:.4f} ms ({k3_ops / k3_ms / 1e9:.1f} TFLOP/s), bound "
+        f" kernel {k3_ms:.4f} ms ({k3_ops / k3_ms / 1e9:.1f} TFLOP/s, "
+        f"{k3_bound / k3_ms:.3f} of the bound's rate), bound "
         f"{k3_bound:.4f} ms ({k3_ops / 1e9:.1f} GFLOP at the dense bf16 rate, "
         f"{k3_bytes / 1e6:.1f} MB; bound by {k3_by}), plain {k3_plain:.4f} "
         f"ms, unfused cuDNN stem (conv, ReLU x2, F.max_pool2d) {k3_lib:.4f} "
-        f"ms, the model's layer route (cuDNN convs, ReLU, K2) "
-        f"{k3_layers:.4f} ms")
+        f"ms (K3 / cuDNN stem = {k3_ms / k3_lib:.4f}), the model's layer "
+        f"route (cuDNN convs, ReLU, K2) {k3_layers:.4f} ms")
     del sx, sw0, sb0, sw2, sb2, xn, xl
     log(f"[times] done in {time.time() - t0:.2f} s")
     log(f"[total] {time.time() - t_all:.1f} s")
@@ -1082,7 +1214,7 @@ def main() -> int:
          "replaces": "din_tpu/ops/stem_kernel.py:68",
          **launches("fused_stem"), "max_abs_err": stem_err, "ms": k3_ms,
          "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": k3_lib},
+         "library_ms": k3_lib, "ms_over_library_ms": k3_ms / k3_lib},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -6,13 +6,16 @@
 // MXU.  On Hopper the natural form is the gather itself: each output row is
 // a lerp of four NHWC pixel rows.
 //
-// Inputs: features [B,H,W,C] (f32 or bf16), the sample centres ys [B,N,KH]
-// and xs [B,N,KW] (f32) and the output [B,N,KH,KW,C] in the features' dtype.
-// The centres are computed once, in torch, by the same _sample_grid the plain
-// version uses (din_tpu_torch/ops/roi_align.py): nvcc contracts a*b+c into
-// an FMA, and centres derived in here would round differently and flip the
-// in-range test for samples that land exactly on the border (the JAX kernel
-// hit exactly this, din_tpu/ops/roi_align.py:199-206).
+// Inputs: features [B,H,W,C] (f32 or bf16), boxes [B,N,4] (x1, y1, x2, y2,
+// f32) and the output [B,N,KH,KW,C] in the features' dtype.  The block of a
+// box computes its sample centres itself, bin = (y2 - y1) / KH and
+// y_i = y1 + (i + 0.5) * bin - 0.5 (likewise x), in the order of the plain
+// version's _sample_grid (din_tpu_torch/ops/roi_align.py) with each op
+// rounded once (__fsub_rn, __fdiv_rn, __fmul_rn, __fadd_rn): nvcc would
+// otherwise contract a*b+c into an FMA, and a centre rounded otherwise flips
+// the in-range test of a sample that lands exactly on the border (the JAX
+// kernel hit exactly this, din_tpu/ops/roi_align.py:199-206).  So the wrapper
+// launches this one kernel and no torch op besides the output's allocation.
 //
 // Per sample: in-range test on [0,H-1]x[0,W-1] (a sample outside is 0 as a
 // whole), clamp, floor/ceil corners, four-corner lerp accumulated in f32.
@@ -30,23 +33,31 @@
 
 namespace {
 
+// sample centre i of a box side from lo to hi with k bins, rounded op by op
+// as _sample_grid computes it: lo + (i + 0.5) * ((hi - lo) / k) - 0.5
+__device__ __forceinline__ float sample_centre(float lo, float hi, int64_t k,
+                                               int64_t i) {
+  const float bin = __fdiv_rn(__fsub_rn(hi, lo), (float)k);
+  const float off = __fmul_rn(__fadd_rn((float)i, 0.5f), bin);
+  return __fsub_rn(__fadd_rn(lo, off), 0.5f);
+}
+
 template <typename T>
 __global__ void roi_align_kernel(const T* __restrict__ feat,
-                                 const float* __restrict__ ys,
-                                 const float* __restrict__ xs,
+                                 const float* __restrict__ boxes,
                                  T* __restrict__ out, int64_t H, int64_t W,
                                  int64_t C, int64_t N, int64_t KH,
                                  int64_t KW) {
   const int64_t bn = blockIdx.x;  // frame * N + box
   const int64_t b = bn / N;
   const T* fb = feat + b * H * W * C;
-  const float* yrow = ys + bn * KH;
-  const float* xrow = xs + bn * KW;
+  const float bx1 = boxes[bn * 4], by1 = boxes[bn * 4 + 1];
+  const float bx2 = boxes[bn * 4 + 2], by2 = boxes[bn * 4 + 3];
   T* ob = out + bn * KH * KW * C;
   const float hmax = (float)(H - 1);
   const float wmax = (float)(W - 1);
   for (int64_t i = 0; i < KH; ++i) {
-    const float y = yrow[i];
+    const float y = sample_centre(by1, by2, KH, i);
     const bool ok_y = (y >= 0.0f) && (y <= hmax);
     const float yc = fminf(fmaxf(y, 0.0f), hmax);
     const float y0f = floorf(yc);
@@ -54,7 +65,7 @@ __global__ void roi_align_kernel(const T* __restrict__ feat,
     const float wy1 = yc - y0f;
     const float wy0 = 1.0f - wy1;
     for (int64_t j = 0; j < KW; ++j) {
-      const float x = xrow[j];
+      const float x = sample_centre(bx1, bx2, KW, j);
       const bool ok_x = (x >= 0.0f) && (x <= wmax);
       T* o = ob + (i * KW + j) * C;
       if (!(ok_y && ok_x)) {
@@ -89,30 +100,29 @@ __global__ void roi_align_kernel(const T* __restrict__ feat,
 }
 
 template <typename T>
-void launch(const void* feat, const float* ys, const float* xs, void* out,
-            int64_t B, int64_t H, int64_t W, int64_t C, int64_t N, int64_t KH,
+void launch(const void* feat, const float* boxes, void* out, int64_t B,
+            int64_t H, int64_t W, int64_t C, int64_t N, int64_t KH,
             int64_t KW, cudaStream_t stream) {
   if (B * N == 0 || C == 0) return;
   int threads = (int)((C + 31) / 32 * 32);
   if (threads > 256) threads = 256;
   roi_align_kernel<T><<<(unsigned)(B * N), threads, 0, stream>>>(
-      static_cast<const T*>(feat), ys, xs, static_cast<T*>(out), H, W, C, N,
+      static_cast<const T*>(feat), boxes, static_cast<T*>(out), H, W, C, N,
       KH, KW);
 }
 
 }  // namespace
 
-extern "C" int din_roi_align(const void* feat, const void* ys, const void* xs,
-                             void* out, int64_t B, int64_t H, int64_t W,
-                             int64_t C, int64_t N, int64_t KH, int64_t KW,
-                             int dtype, void* stream) {
+extern "C" int din_roi_align(const void* feat, const void* boxes, void* out,
+                             int64_t B, int64_t H, int64_t W, int64_t C,
+                             int64_t N, int64_t KH, int64_t KW, int dtype,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* y = static_cast<const float*>(ys);
-  const float* x = static_cast<const float*>(xs);
+  const float* bx = static_cast<const float*>(boxes);
   if (dtype == DIN_F32)
-    launch<float>(feat, y, x, out, B, H, W, C, N, KH, KW, s);
+    launch<float>(feat, bx, out, B, H, W, C, N, KH, KW, s);
   else if (dtype == DIN_BF16)
-    launch<__nv_bfloat16>(feat, y, x, out, B, H, W, C, N, KH, KW, s);
+    launch<__nv_bfloat16>(feat, bx, out, B, H, W, C, N, KH, KW, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

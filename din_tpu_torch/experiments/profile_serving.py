@@ -63,7 +63,7 @@ def main(argv=None):
     def kernels(name):
         return sum(e.self_device_time_total for e in device if name in e.key)
 
-    k3_us = kernels("fused_stem_kernel")
+    k3_us = kernels("fused_stem_")  # fused_stem_{bf16,f32}_kernel
     k2_us, k1_us = kernels("max_pool_2x2_kernel"), kernels("roi_align_kernel")
     n = args.requests
     print(f"{n} requests of {args.clips} clip(s), pad_to={args.pad_to}: "

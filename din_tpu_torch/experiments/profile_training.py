@@ -28,7 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 # kernel-name substrings of each category; the first match wins
 CATEGORIES = (
-    ("K3 fused_stem", ("fused_stem_kernel",)),
+    ("K3 fused_stem", ("fused_stem_",)),
     ("K2b max_pool_2x2_bwd", ("max_pool_2x2_bwd_kernel",)),
     ("K2 max_pool_2x2", ("max_pool_2x2_kernel",)),
     ("K1b roi_align_bwd", ("roi_align_bwd_kernel",)),

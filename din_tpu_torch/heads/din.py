@@ -10,11 +10,11 @@ the TPU's matrix unit (din.py:18-24); the port gathers the four corners, as
 the reference's ``_get_ft`` does, with the same corner, clamp and
 stop-gradient-floor math (din.py:90-104).
 
-``p_conv`` and ``scale_conv`` run in IEEE float32 on the card
-(``ieee_f32_convs``), as the JAX package runs them at
+``p_conv`` and ``scale_conv`` run in IEEE float32 on the card, forward and
+backward (``ieee_conv2d``), as the JAX package runs them at
 ``precision="highest"`` (din.py:162): cuDNN's TF32 default would put a
-10-bit mantissa into the offsets that pick the sampling positions and into
-the affinity logits.
+10-bit mantissa into the offsets that pick the sampling positions, into
+the affinity logits and into their gradients.
 
 Parameter names are the reference's: ``DIMlist.{i}.p_conv.{ratio}``,
 ``scale_conv.{ratio}``, ``hidden_weight``, ``beta``.
@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from din_tpu_torch.nn.layers import kaiming_normal_
-from din_tpu_torch.utils.precision import ieee_f32_convs
+from din_tpu_torch.utils.precision import ieee_conv2d
 
 
 def _pos_k(kernel_size: Tuple[int, int], ratio: int,
@@ -169,10 +169,11 @@ class DynamicPersonInference(nn.Module):
 
     @staticmethod
     def _grid_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        """Conv over the T x N person map: [B,T,N,C] -> [B,T,N,out], in
-        full float32 whatever the process's TF32 flag."""
-        with ieee_f32_convs():
-            return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        """Conv over the T x N person map: [B,T,N,C] -> [B,T,N,out], forward
+        and backward in full float32 whatever the process's TF32 flag."""
+        return ieee_conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias,
+                           conv.stride, conv.padding, conv.dilation,
+                           conv.groups).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B,T,N,C] -> [B,T,N,C]."""

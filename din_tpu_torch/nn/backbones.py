@@ -7,10 +7,11 @@ weights load by name. Parameters stay float32 (the JAX package's
 (the trunk's ``compute_dtype``) with its weight and bias cast to that dtype,
 as flax ``Conv(dtype=bf16)`` casts them, so the cast's backward hands an f32
 gradient to the f32 weight.  A float32 compute dtype means IEEE float32 in
-the forward, not cuDNN's TF32 default (``ieee_f32_convs``; bf16 convs are
-unaffected).  It runs in ``channels_last`` memory, so every conv output is
-an NHWC map and its five 2x2 pools go through kernels K2 and K2b without a
-copy. The JAX package's folded stem (din_tpu/nn/stem.py) is a
+the forward and the backward, not cuDNN's TF32 default (``ieee_conv2d``;
+bf16 convs are unaffected and keep ``F.conv2d``).  It runs in
+``channels_last`` memory, so every conv output is an NHWC map and its five
+2x2 pools go through kernels K2 and K2b without a copy. The JAX package's
+folded stem (din_tpu/nn/stem.py) is a
 device for the TPU's 128-lane vregs, equal in value to the canonical stem:
 the port runs the canonical stem.  Where autograd needs none of the stem's
 intermediates (grad mode off, or neither the frames nor the stem's weights
@@ -28,7 +29,7 @@ from torch import nn
 
 from din_tpu_torch.nn.layers import MaxPool2x2, lecun_normal_
 from din_tpu_torch.ops.stem import fused_stem
-from din_tpu_torch.utils.precision import ieee_f32_convs
+from din_tpu_torch.utils.precision import ieee_conv2d
 
 _VGG16_PLAN = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
                512, 512, 512, "M", 512, 512, 512, "M"]
@@ -67,13 +68,14 @@ class VGG16Backbone(nn.Module):
             x = fused_stem(x.contiguous(),
                            *(p.to(x.dtype) for p in stem_params)
                            ).permute(0, 3, 1, 2)
-        with ieee_f32_convs():
-            for layer in layers:
-                if isinstance(layer, nn.Conv2d):
-                    x = F.conv2d(x, layer.weight.to(x.dtype),
-                                 layer.bias.to(x.dtype), padding=layer.padding)
-                else:
-                    x = layer(x)
+        # float32: forward and backward in IEEE f32; bf16: cuDNN as it is
+        conv = ieee_conv2d if x.dtype == torch.float32 else F.conv2d
+        for layer in layers:
+            if isinstance(layer, nn.Conv2d):
+                x = conv(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype),
+                         padding=layer.padding)
+            else:
+                x = layer(x)
         return x.permute(0, 2, 3, 1).contiguous()
 
 

@@ -12,11 +12,14 @@ as a whole.
 The JAX package's Pallas kernel (``_roi_align_pallas_kernel``) built a
 one-hot interpolation matrix for the TPU's matrix unit; on the card the op
 is a gather, so the kernel (csrc/roi_align.cu) and the plain version
-``roi_align_ref`` both read the four corner rows directly.  Both take their
-sample centres from the one ``_sample_grid`` below, computed in torch, so
-they agree on which samples are in range even at the map border, and the
-kernel rounds its blend op by op in the plain version's order, so the two
-agree bit for bit.
+``roi_align_ref`` both read the four corner rows directly.  The plain
+version takes its sample centres from ``_sample_grid`` below; the kernel
+computes the same centres from the boxes itself, in ``_sample_grid``'s order
+with each op rounded once, so the two agree on which samples are in range
+even at the map border (tests/test_torch_roi_grid.py pins that order), and
+it rounds its blend op by op in the plain version's order, so the two agree
+bit for bit.  K1b (csrc/roi_align_bwd.cu) still takes the centres from
+``_sample_grid``.
 
 The gradient flows to the features only: boxes are constants, as in the
 JAX package (``stop_gradient``, roi_align.py:348) and the reference.  It is
@@ -46,8 +49,13 @@ def _sample_grid(boxes: torch.Tensor, crop_size: Tuple[int, int]):
     (ys [..., KH], xs [..., KW]) (din_tpu/ops/roi_align.py:45-60)."""
     KH, KW = crop_size
     x1, y1, x2, y2 = boxes.unbind(-1)
-    bin_h = (y2 - y1) / KH
-    bin_w = (x2 - x1) / KW
+    # true divisions on every device, as the kernel's __fdiv_rn: CUDA divides
+    # by a Python number as a product with its f32 reciprocal, which differs
+    # in the last bit for some boxes (CPU results are the same either way)
+    kh, kw = (torch.full((), k, dtype=boxes.dtype, device=boxes.device)
+              for k in (KH, KW))
+    bin_h = (y2 - y1) / kh
+    bin_w = (x2 - x1) / kw
     iy = torch.arange(KH, dtype=boxes.dtype, device=boxes.device)
     ix = torch.arange(KW, dtype=boxes.dtype, device=boxes.device)
     ys = y1[..., None] + (iy + 0.5) * bin_h[..., None] - 0.5
@@ -132,14 +140,14 @@ def _roi_align_fwd(features: torch.Tensor, boxes: torch.Tensor,
     B, H, W, C = features.shape
     KH, KW = crop_size
     N = boxes.shape[1]
-    ys, xs = _sample_grid(boxes.float(), crop_size)
-    ys, xs = ys.contiguous(), xs.contiguous()
     out = torch.empty((B, N, KH, KW, C), dtype=features.dtype,
                       device=features.device)
+    # the kernel computes the sample centres from the boxes themselves
+    boxes = boxes.float().contiguous()
     lib = native.library()
     with torch.cuda.device(features.device):
         code = lib.din_roi_align(
-            features.data_ptr(), ys.data_ptr(), xs.data_ptr(), out.data_ptr(),
+            features.data_ptr(), boxes.data_ptr(), out.data_ptr(),
             B, H, W, C, N, KH, KW, native.dtype_code(features.dtype),
             native.current_stream(features))
     native.check(code, "roi_align")

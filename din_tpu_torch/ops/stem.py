@@ -24,7 +24,10 @@ each conv's output before its bias add, so the plain version is its own
 function, not the layers.
 
 ``fused_stem`` on CPU tensors runs the plain version; on CUDA tensors it
-launches csrc/fused_stem.cu or raises.
+launches csrc/fused_stem.cu or raises.  The bf16 kernel runs conv1_2 on
+wgmma with warp-specialised producers of y1 (the source's header has the
+design); the wrapper builds nothing for it: the kernel stages torch's OIHW
+weights into its shared-memory layout once per block.
 """
 
 from __future__ import annotations
@@ -85,15 +88,14 @@ def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                       device=x.device)
     if out.numel() == 0:
         return out
-    # weight rows (dh, dw, ci), columns the output channel: the GEMM's B
-    w0k = w0.permute(2, 3, 1, 0).reshape(27, 64).contiguous()
-    w2k = w2.permute(2, 3, 1, 0).reshape(576, 64).contiguous()
-    b0c, b2c = b0.contiguous(), b2.contiguous()
+    # the kernel reads the OIHW weights as they are (no-op contiguous for
+    # the model's tensors) and lays them out in shared memory itself
+    w0, b0, w2, b2 = (t.contiguous() for t in (w0, b0, w2, b2))
     lib = native.library()
     with torch.cuda.device(x.device):
         code = lib.din_fused_stem(
-            x.data_ptr(), w0k.data_ptr(), b0c.data_ptr(), w2k.data_ptr(),
-            b2c.data_ptr(), out.data_ptr(), Fr, H, W,
+            x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), Fr, H, W,
             native.dtype_code(x.dtype), native.current_stream(x))
     native.check(code, "fused_stem")
     fused_stem.launches += 1

@@ -288,13 +288,13 @@ def test_din_grid_convs_run_with_tf32_off(monkeypatch):
     off, whatever the caller set, and the caller's setting comes back after
     the call."""
     seen = []
-    conv_forward = torch.nn.Conv2d.forward
+    conv2d = torch.nn.functional.conv2d
 
-    def recording(self, x):
+    def recording(*args, **kwargs):
         seen.append(torch.backends.cudnn.allow_tf32)
-        return conv_forward(self, x)
+        return conv2d(*args, **kwargs)
 
-    monkeypatch.setattr(torch.nn.Conv2d, "forward", recording)
+    monkeypatch.setattr(torch.nn.functional, "conv2d", recording)
     head = DynamicPersonInference(8, torch.Generator().manual_seed(0),
                                   scale_factor=True, dynamic_sampling=True)
     x = torch.randn(1, 3, 4, 8)
