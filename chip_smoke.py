@@ -18,9 +18,11 @@ Phases, each timed, any failure exits non-zero:
    frame and an odd 7x9 map (f32 and bf16, random and tie-heavy inputs, a
    non-contiguous incoming gradient; bit-equal), K1 ``roi_align`` and K1b
    ``roi_align_bwd`` on a [20,22,40,512] map with 12 boxes per frame
-   including border, outside and zero-area boxes (f32 within 1e-5, resp.
-   1e-5 of max|df| for K1b, whose atomics add in a varying order; bf16
-   within one bf16 ulp);
+   including border, outside and zero-area boxes (against the plain
+   versions on the card: f32 within 1e-5, resp. 1e-5 of max|df| for K1b,
+   whose plain version adds with atomics there; bf16 within one bf16 ulp),
+   and K1b against its plain version run on the CPU bit for bit in f32 and
+   bf16, two launches and a channel-major g bit-equal to each other;
 3. full-width serving of the flagship preset ``volleyball_stage2_dynamic``
    (VGG-16, 720x1280, T=10, N=12, bf16 backbone compute, f32 weights and
    head) through ``Predictor(pad_to=2)`` with seeded random weights: three
@@ -35,16 +37,23 @@ Phases, each timed, any failure exits non-zero:
    convs with their backward as before the repair and repaired, under the
    default flags, against TF32 off, the repaired difference no larger than
    that between two TF32-off runs (cuDNN's deterministic algorithms);
-4. full-width stage 1 (``volleyball_stage1``) through ``train_net``: one
-   epoch of 3 Adam steps at batch 8 (T=1), an eval pass and a stage-1
-   component file, with the launch counts of all five kernels (0 just
-   before, read just after, against counts derived from ``auto_chunk``);
-   ms per step, clips/s and peak memory on one batch; then the flagship
-   stage 2 through ``train_net`` started from that file with
+4. full-width stage 1 (``volleyball_stage1``) through ``train_net``
+   started from a torchvision-layout VGG-16 file the smoke writes
+   (``--pretrained-backbone-path``; ``backbone.features`` equal the file's
+   tensors): one epoch of 3 Adam steps at batch 8 (T=1), an eval pass and a
+   stage-1 component file, with the launch counts of all five kernels (0
+   just before, read just after, against counts derived from
+   ``auto_chunk``); ms per step, clips/s and peak memory on one batch; then
+   the flagship stage 2 through ``train_net`` started from that file with
    ``--stage1-model-path``: ``backbone.*`` and ``fc_emb_1`` equal the
    file's tensors before the first step, 3 steps at batch 2, an eval pass, a
    checkpoint, the launch counts; finite losses; the checkpoint reloaded as
-   ``--stage2-model-path`` gives equal params and Adam state;
+   ``--stage2-model-path`` gives equal params and Adam state; the same
+   state rewritten as the reference framework writes it (keys and Adam
+   indices in the JAX package's exporter order) and migrated with
+   ``--ref-checkpoint-path --ref-resume-optimizer``: weights and moments
+   adopted by name, the start epoch, and a 1-step ``train_net`` from it
+   with its launch counts;
 5. memorisation: 8 steps on one fixed full-width batch with dropout 0, the
    loss at step 8 below step 1; ms per step after a warm-up step, clips/s,
    peak device memory, and one profiled step's device time split by kernel;
@@ -62,8 +71,8 @@ Phases, each timed, any failure exits non-zero:
 7. each kernel's time at the main paths' shapes beside its bound, its plain
    version's time and, where one exists, a PyTorch call's time (for K3 the
    unfused cuDNN stem, with K3's time as a ratio to it, and the layer route
-   the model takes with a gradient; for K1 the wrapper and the launch
-   alone).
+   the model takes with a gradient; for K1 and K1b the wrapper and the
+   launch alone, and for K1b the copy of a channel-major gradient).
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -382,6 +391,50 @@ def log_train_card_vs_cpu(what: str, cfg, r: dict, steps: int = 3) -> None:
            else "(reported, not bounded)"))
 
 
+def write_vgg16_file(path: str, seed: int) -> dict:
+    """A torchvision-layout VGG-16 ``state_dict`` file, as a user's
+    pretrained ImageNet backbone would be: random ``features.*`` at their
+    init scale (std sqrt(2 / fan_in), biases ~0.05) and one small
+    ``classifier.*`` pair standing in for torchvision's classifier (its
+    classifier.0 alone is 400 MB).  Returns the tensors written."""
+    from din_tpu_torch.nn.backbones import VGG16Backbone
+
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for k, v in VGG16Backbone(gen).state_dict().items():
+        fan_in = math.prod(v.shape[1:]) if v.dim() > 1 else 0
+        state[k] = torch.randn(v.shape, generator=gen) * (
+            (2.0 / fan_in) ** 0.5 if fan_in else 0.05)
+    state["classifier.6.weight"] = torch.randn((8, 16), generator=gen)
+    state["classifier.6.bias"] = torch.zeros(8)
+    torch.save(state, path)
+    return state
+
+
+# the JAX package's exporter writes a stage-2 DIN model's keys in this order
+# (din_tpu/nn/ref_export.py:221-305); the port registers point_conv and
+# point_ln before DPI
+EXPORTER_ORDER = ("backbone.", "fc_emb_1.", "nl_emb_1.", "DPI.", "dpi_nl.",
+                  "point_ln.", "point_conv.", "fc_activities.")
+
+
+def reference_ordered(saved: dict, names: list) -> dict:
+    """The port's stage-2 file ``saved`` rewritten as the reference
+    framework writes one: state_dict keys in the exporter's order, and the
+    Adam state keyed by parameter index in that order.  ``names`` are the
+    port's trainable parameter names in its own index order."""
+    keys = sorted(saved["state_dict"], key=lambda k: next(
+        i for i, pre in enumerate(EXPORTER_ORDER) if k.startswith(pre)))
+    opt = saved["optimizer"]
+    return {"epoch": saved["epoch"],
+            "state_dict": {k: saved["state_dict"][k] for k in keys},
+            "optimizer": {
+                "state": {j: opt["state"][names.index(k)]
+                          for j, k in enumerate(keys)},
+                "param_groups": [dict(opt["param_groups"][0],
+                                      params=list(range(len(keys))))]}}
+
+
 def time_host(fn, iters: int) -> list:
     """ms of each of ``iters`` calls of ``fn``, host clock, each ended by a
     synchronize."""
@@ -592,12 +645,41 @@ def main() -> int:
     roi_bwd_err = diff.max().item()
     log(f"[kernels] K1b roi_align_bwd vs plain at [20,12,5,5,512] -> "
         f"[20,22,40,512], same boxes: f32 max |err| {bwd32:.3g} (<= 1e-5 * "
-        f"max|df| = {1e-5 * scale:.3g}; atomics add in a varying order), "
+        f"max|df| = {1e-5 * scale:.3g}; the plain version on the card adds "
+        f"with index_add_'s atomics, in a varying order), "
         f"bf16 max |err| {roi_bwd_err:.3g} against the f32 result, largest "
         f"excess over 1 bf16 ulp {max(excess, 0.0):.3g} (<= 1e-5 * max|df| "
         f"= {1e-5 * scale16:.3g}); "
         f"{int((diff > ulp).sum())} of {diff.numel()} elements beyond 1 ulp")
-    del feats32, feats16, gb, gb16, got, ref, diff, ulp
+    # the kernel adds in the plain version's order: bit for bit equal to it
+    # run on the CPU (index_add_ adds rows in index order there), and to
+    # itself from launch to launch; also from g in the trunk's
+    # channel-major layout, which the wrapper copies first
+    cboxes = kboxes.cpu()
+    for dtype, bits in ((torch.float32, torch.int32),
+                        (torch.bfloat16, torch.int16)):
+        g_dt = gb.to(dtype)
+        want = roi_align_bwd_ref(g_dt.cpu(), cboxes, hw, dtype)
+        first = roi_align_bwd(g_dt, kboxes, hw, dtype)
+        second = roi_align_bwd(g_dt, kboxes, hw, dtype)
+        copies = roi_align_bwd.g_copies
+        g_cm = g_dt.permute(0, 1, 4, 2, 3).contiguous().permute(0, 1, 3, 4, 2)
+        third = roi_align_bwd(g_cm, kboxes, hw, dtype)
+        torch.cuda.synchronize()
+        differ = int((first.cpu().view(bits) != want.view(bits)).sum())
+        require(differ == 0, f"roi_align_bwd {dtype} differs from the plain "
+                f"version on the CPU in {differ} of {want.numel()} elements")
+        require(torch.equal(first.view(bits), second.view(bits))
+                and torch.equal(first.view(bits), third.view(bits)),
+                f"roi_align_bwd {dtype}: two launches differ")
+        require(roi_align_bwd.g_copies == copies + 1,
+                "roi_align_bwd did not count its copy of a channel-major g")
+        log(f"[kernels] K1b roi_align_bwd {dtype} at [20,12,5,5,512] with the "
+            f"edge boxes: equal to roi_align_bwd_ref on the CPU bit for bit "
+            f"({want.numel()} elements), two launches and a channel-major g "
+            f"bit-equal to each other")
+    del feats32, feats16, gb, gb16, got, ref, diff, ulp, g_dt, want, first
+    del second, third, g_cm
     log(f"[kernels] done in {time.time() - t0:.2f} s")
 
     # -- 3. full-width serving ------------------------------------------------
@@ -763,7 +845,7 @@ def main() -> int:
     t0 = time.time()
     steps = 3
 
-    def expected_counts(c, n_val):
+    def expected_counts(c, n_val, steps=steps):
         """Launches of ``steps`` training steps (every layer one by one: the
         stem needs its gradient) and an eval pass over ``n_val`` clips (no
         gradient: the fused stem and 4 pools per chunk)."""
@@ -797,9 +879,12 @@ def main() -> int:
     run_root = native.BUILD_DIR.parent / "smoke_runs"
     run_root.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        vgg_path = str(Path(tmp) / "vgg16_pretrained.pth")
+        vgg_state = write_vgg16_file(vgg_path, SEED + 5)
         s1_argv = ["--preset", "volleyball_stage1", "--data-path",
                    "synthetic", "--max-epoch", "1", "--result-root", tmp,
-                   "--exp-name", "stage1"]
+                   "--exp-name", "stage1", "--pretrained-backbone-path",
+                   vgg_path]
         s1cfg, _ = config_from_args(s1_argv)
         _, s1_val = return_dataset(s1cfg)
         torch.cuda.synchronize()
@@ -836,7 +921,20 @@ def main() -> int:
             f"file {Path(s1_path).name} "
             f"({Path(s1_path).stat().st_size / 2 ** 20:.0f} MiB, keys "
             f"{sorted(comp)})")
+        require("Loaded pretrained backbone: " + vgg_path in (
+            Path(tmp) / "stage1" / "log.txt").read_text(),
+            "stage 1 did not start from the pretrained backbone")
         model, optimizer, _ = setup_training(s1cfg)
+        feats = model.backbone.features.state_dict()
+        require(sorted(feats) == sorted(k[len("features."):] for k in vgg_state
+                                        if k.startswith("features."))
+                and all(torch.equal(v.cpu(), vgg_state["features." + k])
+                        for k, v in feats.items()),
+                "the pretrained backbone differs from the file's tensors")
+        log(f"[stage1] --pretrained-backbone-path: train_net started from a "
+            f"torchvision-layout VGG-16 file the smoke wrote; setup_training "
+            f"loads its {len(feats)} features.* tensors equal to the file's, "
+            f"classifier.* unused")
         s1batch = to_device(make_synthetic_batch(
             s1cfg, s1cfg.batch_size, rng=np.random.RandomState(SEED + 3)),
             dev)
@@ -880,6 +978,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         max_pool_2x2_bwd.g_copies = 0
+        roi_align_bwd.g_copies = 0
         tt = time.time()
         best = train_net(tcfg, max_steps_per_epoch=steps)
         torch.cuda.synchronize()
@@ -895,7 +994,8 @@ def main() -> int:
             f"{train_peak:.2f} GiB")
         log(f"[train] launches {train_counts}, expected {expect} ({how}); "
             f"K2b's incoming gradient copied to NHWC "
-            f"{max_pool_2x2_bwd.g_copies} times")
+            f"{max_pool_2x2_bwd.g_copies} times, K1b's to contiguous "
+            f"{roi_align_bwd.g_copies} times")
         require(train_counts == expect and min(expect.values()) > 0,
                 "training launch counts are off")
         train_losses = log_losses(Path(tmp) / "train" / "log.txt", "stage 2")
@@ -924,7 +1024,65 @@ def main() -> int:
         log(f"[train] --stage2-model-path reload: params and Adam state "
             f"equal ({len(saved['optimizer']['state'])} tensors' moments), "
             f"resumes at epoch {start}")
-        del model, optimizer, saved, state, ostate
+
+        # the same state as the reference framework writes it, keys and Adam
+        # indices in the JAX package's exporter order, migrated with
+        # --ref-checkpoint-path --ref-resume-optimizer (the flagship preset
+        # would graft its stage-1 file after it, as din_tpu's does: off here)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        require(sorted(names) == sorted(saved["state_dict"]),
+                "the stage-2 model has state besides its parameters")
+        ref = reference_ordered(saved, names)
+        require(list(ref["state_dict"]) != names,
+                "the exporter's order equals the port's")
+        ref_path = str(Path(tmp) / "reference_order.pth")
+        torch.save(ref, ref_path)
+        del model, optimizer, state, ostate
+        torch.cuda.empty_cache()
+        rrcfg, _ = config_from_args([
+            "--preset", "volleyball_stage2_dynamic", "--data-path",
+            "synthetic", "--max-epoch", "1", "--result-root", tmp,
+            "--exp-name", "resume", "--ref-checkpoint-path", ref_path,
+            "--ref-resume-optimizer"])
+        rrcfg = rrcfg.replace(load_backbone_stage2=False)
+        model, optimizer, start = setup_training(rrcfg)
+        require(start == saved["epoch"] + 1, f"ref resume at epoch {start}")
+        adopted = 0
+        for name, p in model.named_parameters():
+            src = saved["optimizer"]["state"][names.index(name)]
+            st = optimizer.state[p]
+            require(torch.equal(p.detach().cpu(), saved["state_dict"][name])
+                    and torch.equal(st["exp_avg"].cpu(), src["exp_avg"])
+                    and torch.equal(st["exp_avg_sq"].cpu(), src["exp_avg_sq"])
+                    and float(st["step"]) == float(src["step"]),
+                    f"adopted state of {name} differs")
+            adopted += 1
+        del model, optimizer
+        torch.cuda.empty_cache()
+        reset_counts()
+        tt = time.time()
+        rbest = train_net(rrcfg, max_steps_per_epoch=1)
+        torch.cuda.synchronize()
+        resume_s = time.time() - tt
+        resume_counts = read_counts()
+        rexpect, how = expected_counts(rrcfg, len(val_set), steps=1)
+        rlog = (Path(tmp) / "resume" / "log.txt").read_text()
+        log(f"[train] reference-ordered .pth (keys and Adam indices in the "
+            f"exporter's order) through --ref-checkpoint-path "
+            f"--ref-resume-optimizer: {adopted} tensors' weights and moments "
+            f"adopted by name, equal to the port's file; resumes at epoch "
+            f"{start}; train_net of 1 step + eval in {resume_s:.2f} s, "
+            f"launches {resume_counts}, expected {rexpect} ({how})")
+        require(resume_counts == rexpect and min(rexpect.values()) > 0,
+                "reference-resume launch counts are off")
+        for line in (f"Loaded reference checkpoint {ref_path} (0 keys "
+                     f"skipped)", "Adopted reference optimizer state "
+                     f"(resuming at epoch {start})",
+                     f"Train at epoch #{start}"):
+            require(line in rlog, f"reference resume log lacks {line!r}")
+        require(Path(rbest["checkpoint"]).name.startswith(
+            f"stage2_epoch{start}_"), f"resume wrote {rbest['checkpoint']}")
+        del saved, ref
     torch.cuda.empty_cache()
     log(f"[train] done in {time.time() - t0:.2f} s")
 
@@ -1118,29 +1276,43 @@ def main() -> int:
         f"computes the sample grid), bound {k1_bound:.5f} ms "
         f"({k1_bytes / 1e6:.2f} MB), plain {k1_plain:.4f} ms, no single "
         f"PyTorch call computes it")
-    ys, xs = (t.contiguous() for t in _sample_grid(main_boxes, crop))
-
     g = torch.randn(out.shape, generator=dgen, device=dev).bfloat16()
     k1b_ms = time_cuda(lambda: roi_align_bwd(g, main_boxes, (OH, OW),
                                              torch.bfloat16), 100, flush)
     k1b_plain = time_cuda(lambda: roi_align_bwd_ref(
         g, main_boxes, (OH, OW), torch.bfloat16), 100, flush)
-    df32 = torch.zeros(feats.shape, dtype=torch.float32, device=dev)
+    # the launch alone, with the output made beforehand
+    df = torch.empty(feats.shape, dtype=torch.bfloat16, device=dev)
     k1b_bare = time_cuda(lambda: native.check(lib.din_roi_align_bwd(
-        g.data_ptr(), ys.data_ptr(), xs.data_ptr(), df32.data_ptr(),
-        *feats.shape, main_boxes.shape[1], *crop, native.DTYPE_BF16,
-        stream), "roi_align_bwd"), 100, flush)
-    # read g and the sample centres once, write d(features) once; 4 products
-    # and 4 sums per sample and channel
-    k1b_bytes = (g.numel() * g.element_size() + (ys.numel() + xs.numel()) * 4
+        g.data_ptr(), main_boxes.data_ptr(), df.data_ptr(), *feats.shape,
+        main_boxes.shape[1], *crop, native.DTYPE_BF16, stream),
+        "roi_align_bwd"), 100, flush)
+    # g as the trunk's channel-major flatten hands it over: the wrapper
+    # copies it to contiguous first
+    g_cm = g.permute(0, 1, 4, 2, 3).contiguous().permute(0, 1, 3, 4, 2)
+    k1b_copy = time_cuda(lambda: g_cm.contiguous(), 100, flush)
+    k1b_cm = time_cuda(lambda: roi_align_bwd(g_cm, main_boxes, (OH, OW),
+                                             torch.bfloat16), 100, flush)
+    # read the g rows of the samples in range and the boxes once, write
+    # d(features) once; 4 products and 4 sums per sample in range and channel
+    ys, xs = (t.cpu() for t in _sample_grid(main_boxes, crop))
+    in_range = (((ys >= 0) & (ys <= OH - 1))[..., :, None]
+                & ((xs >= 0) & (xs <= OW - 1))[..., None, :])
+    k1b_samples = int(in_range.sum())
+    C1 = feats.shape[-1]
+    k1b_bytes = (k1b_samples * C1 * g.element_size() + main_boxes.numel() * 4
                  + feats.numel() * feats.element_size())
     k1b_bound = max(k1b_bytes / HBM_BYTES_PER_S,
-                    8 * g.numel() / F32_FLOPS_PER_S) * 1e3
+                    8 * k1b_samples * C1 / F32_FLOPS_PER_S) * 1e3
     log(f"[times] K1b {list(g.shape)} bf16 -> {list(feats.shape)}: wrapper "
-        f"{k1b_ms:.4f} ms (launch alone, on a zeroed f32 map, "
-        f"{k1b_bare:.4f} ms), bound {k1b_bound:.5f} ms "
-        f"({k1b_bytes / 1e6:.2f} MB), plain {k1b_plain:.4f} ms, no single "
-        f"PyTorch call computes it")
+        f"{k1b_ms:.4f} ms (launch alone {k1b_bare:.4f} ms; the kernel "
+        f"computes the sample grid and writes every element once), bound "
+        f"{k1b_bound:.5f} ms ({k1b_bytes / 1e6:.2f} MB, {k1b_samples} of "
+        f"{in_range.numel()} samples in range), plain {k1b_plain:.4f} ms, no "
+        f"single PyTorch call computes it; from a channel-major g: wrapper "
+        f"{k1b_cm:.4f} ms, of which the copy to contiguous {k1b_copy:.4f} ms "
+        f"({g.numel() * g.element_size() / 1e6:.2f} MB each way)")
+    del g, g_cm, df
 
     # K3 at one serving chunk; the yardsticks: the unfused cuDNN stem in
     # bf16 channels_last, and the route the model takes when the stem
@@ -1207,8 +1379,9 @@ def main() -> int:
          "note": "no Pallas kernel: din_tpu computes this gradient with XLA "
                  "einsums (din_tpu/ops/roi_align.py:302-309)",
          **launches("roi_align_bwd"), "max_abs_err": roi_bwd_err,
-         "ms": k1b_ms, "plain_ms": k1b_plain, "bound_ms": k1b_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "ms": k1b_ms, "launch_ms": k1b_bare, "plain_ms": k1b_plain,
+         "bound_ms": k1b_bound, "bound_by": "bytes", "library_ms": None,
+         "channel_major_ms": k1b_cm, "g_copy_ms": k1b_copy},
         {"name": "fused_stem", "route": "cuda",
          "source": "din_tpu_torch/csrc/fused_stem.cu",
          "replaces": "din_tpu/ops/stem_kernel.py:68",

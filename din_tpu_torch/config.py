@@ -69,6 +69,16 @@ class Config:
     # a full stage-2 checkpoint of the port (.pth) to resume from
     load_stage2model: bool = False
     stage2model: Optional[str] = None
+    # a .pth saved by the reference framework (full-model or stage-1
+    # component format) grafted into the initialised model before the
+    # stage-1/stage-2 loaders (din_tpu/config.py:119-124, nn/ref_import.py)
+    ref_checkpoint_path: str = ""
+    # also adopt the torch Adam moments, step and lr of that full-format
+    # file and resume at its epoch + 1 (din_tpu/config.py:125-129)
+    ref_resume_optimizer: bool = False
+    # torchvision-layout state_dict file of the backbone (ImageNet init of
+    # stage 1; din_tpu/config.py:180)
+    pretrained_backbone_path: Optional[str] = None
 
     # Dynamic Inference / DIN (reference config.py:83-97)
     stride: int = 1

@@ -9,13 +9,13 @@
 // Inputs: features [B,H,W,C] (f32 or bf16), boxes [B,N,4] (x1, y1, x2, y2,
 // f32) and the output [B,N,KH,KW,C] in the features' dtype.  The block of a
 // box computes its sample centres itself, bin = (y2 - y1) / KH and
-// y_i = y1 + (i + 0.5) * bin - 0.5 (likewise x), in the order of the plain
-// version's _sample_grid (din_tpu_torch/ops/roi_align.py) with each op
-// rounded once (__fsub_rn, __fdiv_rn, __fmul_rn, __fadd_rn): nvcc would
-// otherwise contract a*b+c into an FMA, and a centre rounded otherwise flips
-// the in-range test of a sample that lands exactly on the border (the JAX
-// kernel hit exactly this, din_tpu/ops/roi_align.py:199-206).  So the wrapper
-// launches this one kernel and no torch op besides the output's allocation.
+// y_i = y1 + (i + 0.5) * bin - 0.5 (likewise x), with the helpers of
+// roi_grid.cuh, which K1b shares: in the order of the plain version's
+// _sample_grid (din_tpu_torch/ops/roi_align.py) with each op rounded once, as
+// a centre rounded otherwise flips the in-range test of a sample that lands
+// exactly on the border (the JAX kernel hit exactly this,
+// din_tpu/ops/roi_align.py:199-206).  So the wrapper launches this one kernel
+// and no torch op besides the output's allocation.
 //
 // Per sample: in-range test on [0,H-1]x[0,W-1] (a sample outside is 0 as a
 // whole), clamp, floor/ceil corners, four-corner lerp accumulated in f32.
@@ -29,18 +29,9 @@
 // boxes, 5x5, C=512, bf16) that is ~1.5 MB each way, so launch latency is
 // the real floor.  Design: one block per (frame, box); threads run across C,
 // so every corner-row read of the NHWC map is coalesced.
-#include "common.cuh"
+#include "roi_grid.cuh"
 
 namespace {
-
-// sample centre i of a box side from lo to hi with k bins, rounded op by op
-// as _sample_grid computes it: lo + (i + 0.5) * ((hi - lo) / k) - 0.5
-__device__ __forceinline__ float sample_centre(float lo, float hi, int64_t k,
-                                               int64_t i) {
-  const float bin = __fdiv_rn(__fsub_rn(hi, lo), (float)k);
-  const float off = __fmul_rn(__fadd_rn((float)i, 0.5f), bin);
-  return __fsub_rn(__fadd_rn(lo, off), 0.5f);
-}
 
 template <typename T>
 __global__ void roi_align_kernel(const T* __restrict__ feat,
@@ -57,35 +48,25 @@ __global__ void roi_align_kernel(const T* __restrict__ feat,
   const float hmax = (float)(H - 1);
   const float wmax = (float)(W - 1);
   for (int64_t i = 0; i < KH; ++i) {
-    const float y = sample_centre(by1, by2, KH, i);
-    const bool ok_y = (y >= 0.0f) && (y <= hmax);
-    const float yc = fminf(fmaxf(y, 0.0f), hmax);
-    const float y0f = floorf(yc);
-    const float y1f = ceilf(yc);
-    const float wy1 = yc - y0f;
-    const float wy0 = 1.0f - wy1;
+    const DinRoiAxis ay = din_roi_axis(
+        din_roi_sample_centre(by1, by2, KH, i), hmax);
     for (int64_t j = 0; j < KW; ++j) {
-      const float x = sample_centre(bx1, bx2, KW, j);
-      const bool ok_x = (x >= 0.0f) && (x <= wmax);
+      const DinRoiAxis ax = din_roi_axis(
+          din_roi_sample_centre(bx1, bx2, KW, j), wmax);
       T* o = ob + (i * KW + j) * C;
-      if (!(ok_y && ok_x)) {
+      if (!(ay.ok && ax.ok)) {
         for (int64_t c = threadIdx.x; c < C; c += blockDim.x)
           o[c] = din_from_f32<T>(0.0f);
         continue;
       }
-      const float xc = fminf(fmaxf(x, 0.0f), wmax);
-      const float x0f = floorf(xc);
-      const float x1f = ceilf(xc);
-      const float wx1 = xc - x0f;
-      const float wx0 = 1.0f - wx1;
-      const float w00 = wy0 * wx0, w01 = wy0 * wx1;
-      const float w10 = wy1 * wx0, w11 = wy1 * wx1;
-      const int64_t y0 = (int64_t)y0f, y1 = (int64_t)y1f;
-      const int64_t x0 = (int64_t)x0f, x1 = (int64_t)x1f;
-      const T* r00 = fb + (y0 * W + x0) * C;
-      const T* r01 = fb + (y0 * W + x1) * C;
-      const T* r10 = fb + (y1 * W + x0) * C;
-      const T* r11 = fb + (y1 * W + x1) * C;
+      const float w00 = __fmul_rn(ay.w_lo, ax.w_lo);
+      const float w01 = __fmul_rn(ay.w_lo, ax.w_hi);
+      const float w10 = __fmul_rn(ay.w_hi, ax.w_lo);
+      const float w11 = __fmul_rn(ay.w_hi, ax.w_hi);
+      const T* r00 = fb + ((int64_t)ay.lo * W + ax.lo) * C;
+      const T* r01 = fb + ((int64_t)ay.lo * W + ax.hi) * C;
+      const T* r10 = fb + ((int64_t)ay.hi * W + ax.lo) * C;
+      const T* r11 = fb + ((int64_t)ay.hi * W + ax.hi) * C;
       for (int64_t c = threadIdx.x; c < C; c += blockDim.x) {
         // rounded op by op in the plain version's order (no FMA), so the
         // kernel equals roi_align_ref bit for bit

@@ -15,7 +15,11 @@ one stage-1 component file ``stage1_epoch{E}_{acc}%.pth`` (stage 1).
 ``--stage1-model-path`` names the stage-1 file whose backbone and fc_emb
 stage 2 starts from (the flagship preset grafts one by default);
 ``--stage2-model-path`` resumes a stage-2 file instead (params, Adam state
-and epoch), as in the JAX package's run.py:78-83.
+and epoch), as in the JAX package's run.py:78-83.  ``--pretrained-backbone-
+path`` starts stage 1 from a torchvision VGG-16 ``state_dict`` file;
+``--ref-checkpoint-path`` grafts a ``.pth`` saved by the reference framework
+and ``--ref-resume-optimizer`` continues its training where it stopped
+(run.py:24-30,59-61).
 """
 
 from __future__ import annotations
@@ -37,6 +41,16 @@ def config_from_args(argv=None):
                    help="stage-1 component .pth to graft into stage 2")
     p.add_argument("--stage2-model-path", default=None,
                    help="stage-2 .pth of the port to resume from")
+    p.add_argument("--ref-checkpoint-path", default=None,
+                   help=".pth saved by the reference framework to graft in "
+                        "(nn/ref_import.py)")
+    p.add_argument("--ref-resume-optimizer", action="store_true",
+                   help="also adopt the torch Adam moments/step/lr of the "
+                        "reference full checkpoint and resume at its epoch "
+                        "+ 1")
+    p.add_argument("--pretrained-backbone-path", default=None,
+                   help="torchvision state_dict file for the backbone's "
+                        "ImageNet init (stage 1; VGG-16)")
     p.add_argument("--result-root", default=None)
     p.add_argument("--exp-name", default=None)
     p.add_argument("--device", default=None,
@@ -57,6 +71,12 @@ def config_from_args(argv=None):
         overrides["stage2model"] = args.stage2_model_path
         overrides["load_stage2model"] = True
         overrides["load_backbone_stage2"] = False
+    if args.ref_checkpoint_path:
+        overrides["ref_checkpoint_path"] = args.ref_checkpoint_path
+    if args.ref_resume_optimizer:
+        overrides["ref_resume_optimizer"] = True
+    if args.pretrained_backbone_path:
+        overrides["pretrained_backbone_path"] = args.pretrained_backbone_path
     if args.result_root:
         overrides["result_root"] = args.result_root
     if args.exp_name:

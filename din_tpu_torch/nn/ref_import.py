@@ -1,0 +1,194 @@
+"""Checkpoints written by the reference framework, and torchvision backbone
+weights, into the port.
+
+The port's own copy of din_tpu/nn/ref_import.py ``load_reference_checkpoint``
+(lines 395-432) and ``load_reference_optimizer`` (lines 306-368), and of
+din_tpu/nn/torch_port.py ``torch_file_to_numpy`` / ``convert_backbone_state``
+(lines 35-111), for the models the port has.  The port's modules carry the
+reference's names and layouts, so what the JAX package converts (NHWC
+kernels, the position-major RoI flatten) here loads by name as it is.
+
+Two reference formats (din_tpu/nn/ref_import.py:1-22):
+
+* full-model files (train_net.py:120-127), ``{'epoch', 'state_dict',
+  'optimizer'}`` with flat ``model.state_dict()`` keys;
+* stage-1 component files (base_model.py:46-54), ``{'backbone_state_dict',
+  'fc_emb_state_dict', 'fc_actions_state_dict',
+  'fc_activities_state_dict'}``, mapped to ``backbone.``, ``fc_emb_1.``,
+  ``fc_actions.`` and ``fc_activities.``.
+
+Like the reference's ``loadpart``, a key the model does not have is
+reported, not fatal; a key it has with another shape raises.
+
+The reference saves torch Adam's state (keyed by parameter index) but never
+restores it.  ``load_reference_optimizer`` rebuilds that index as the JAX
+package does, from the FILE's ``state_dict`` key order minus BatchNorm
+buffers, minus ``backbone.*`` when the backbone is frozen, then gives each
+moment to the port's parameter of that NAME.  A positional
+``optimizer.load_state_dict`` would give them to the wrong tensors: the port
+registers ``point_conv``/``point_ln`` before ``DPI``, while the JAX
+package's exporter writes them after ``dpi_nl`` (din_tpu/nn/ref_export.py
+:221-305).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Tuple
+
+import torch
+
+_BUFFER_SUFFIXES = ("running_mean", "running_var", "num_batches_tracked")
+_COMPONENTS = (("backbone_state_dict", "backbone."),
+               ("fc_emb_state_dict", "fc_emb_1."),
+               ("fc_actions_state_dict", "fc_actions."),
+               ("fc_activities_state_dict", "fc_activities."))
+# the ROADMAP.md item that brings each backbone the port lacks
+_BACKBONE_ITEM = {"res18": 5, "inv3": 6, "vgg19": 7, "res50": 7,
+                  "alexnet": 7}
+
+
+def _read(path_or_state):
+    if isinstance(path_or_state, (str, os.PathLike)):
+        return torch.load(path_or_state, map_location="cpu",
+                          weights_only=True)
+    return path_or_state
+
+
+def reference_state_dict(state) -> Dict[str, torch.Tensor]:
+    """The flat ``{key: tensor}`` of a reference checkpoint of either
+    format, component files mapped to model keys."""
+    if "backbone_state_dict" in state:
+        return {prefix + k: v for comp, prefix in _COMPONENTS
+                for k, v in state.get(comp, {}).items()}
+    return dict(state.get("state_dict", state))
+
+
+def _model_key(model: torch.nn.Module):
+    """Reference key -> the model's key: a stage-1 Basenet names the
+    embedding ``fc_emb`` where the JAX package's files write ``fc_emb_1``
+    (the reference's Basenet writes ``fc_emb`` itself)."""
+    own = model.state_dict()
+    if "fc_emb_1.weight" not in own and "fc_emb.weight" in own:
+        return lambda k: ("fc_emb." + k[len("fc_emb_1."):]
+                          if k.startswith("fc_emb_1.") else k)
+    return lambda k: k
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path_or_state
+                              ) -> List[str]:
+    """Loads every tensor of a reference ``.pth`` (either format) whose key
+    the model has into ``model`` in place; returns the keys it skipped.
+    A key the model has with another shape raises ``ValueError``."""
+    flat = reference_state_dict(_read(path_or_state))
+    key = _model_key(model)
+    own = model.state_dict()
+    load, skipped = {}, []
+    for k, v in flat.items():
+        mk = key(k)
+        if mk not in own:
+            skipped.append(k)
+            continue
+        if tuple(v.shape) != tuple(own[mk].shape):
+            raise ValueError(f"shape mismatch at {k}: the model has "
+                             f"{tuple(own[mk].shape)}, the file "
+                             f"{tuple(v.shape)}")
+        load[mk] = v
+    model.load_state_dict(load, strict=False)
+    return sorted(skipped)
+
+
+def _scalar(v) -> float:
+    """``step`` is a tensor since torch 1.12 and an int in torch 1.2, the
+    reference's version."""
+    return float(v.item() if hasattr(v, "item") else v)
+
+
+def load_reference_optimizer(model: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer, path_or_state,
+                             cfg) -> int:
+    """Adopts the torch Adam state a reference full checkpoint saved:
+    ``exp_avg``, ``exp_avg_sq``, ``step`` and the first group's ``lr``, in
+    place.  Returns the file's epoch; training resumes at epoch + 1.
+
+    The JAX package keeps one step count for all parameters (optax), the
+    largest in the file, and zero moments where the file has none; so does
+    this: every trainable parameter gets that step.  A file without
+    optimizer state leaves the optimizer as it is.  ``model``'s trainable
+    parameters must be ``optimizer``'s."""
+    state = _read(path_or_state)
+    epoch = int(state.get("epoch", 0))
+    opt_sd = state.get("optimizer") or {}
+    if not opt_sd.get("state"):
+        return epoch
+
+    names = [k for k in reference_state_dict(state)
+             if not k.endswith(_BUFFER_SUFFIXES)]
+    if not cfg.train_backbone:
+        names = [k for k in names if not k.startswith("backbone.")]
+    ids = [pid for g in opt_sd["param_groups"] for pid in g["params"]]
+    if len(ids) != len(names):
+        raise ValueError(
+            f"optimizer has {len(ids)} params but the checkpoint implies "
+            f"{len(names)} trainable tensors — was train_backbone "
+            f"({cfg.train_backbone}) different in the reference run?")
+    id2name = dict(zip(ids, names))
+
+    key = _model_key(model)
+    params = dict(model.named_parameters())
+    trainable = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    moments: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+    steps = [0.0]
+    for pid, pstate in opt_sd["state"].items():
+        name = id2name[int(pid)]
+        p = params.get(key(name))
+        if p is None:              # a tensor the model has not: skipped
+            continue
+        if id(p) not in trainable:
+            raise ValueError(f"moment supplied for frozen param at {name}")
+        # din_tpu halves the moments of nn.LSTM's two biases, which its
+        # import sums; no model of the port has an LSTM yet (PCTDM comes
+        # with ROADMAP.md §1 item 7), so nothing here needs it
+        mu, nu = pstate["exp_avg"], pstate["exp_avg_sq"]
+        if tuple(mu.shape) != tuple(p.shape) or \
+                tuple(nu.shape) != tuple(p.shape):
+            raise ValueError(f"moment shape mismatch at {name}: "
+                             f"{tuple(p.shape)} vs {tuple(mu.shape)}")
+        moments[id(p)] = (mu, nu)
+        steps.append(_scalar(pstate["step"]))
+
+    step = max(steps)
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            mu, nu = moments.get(id(p), (torch.zeros_like(p),
+                                         torch.zeros_like(p)))
+            optimizer.state[p] = {
+                "step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": mu.to(p.device, p.dtype).clone(),
+                "exp_avg_sq": nu.to(p.device, p.dtype).clone(),
+            }
+    lr = opt_sd["param_groups"][0].get("lr")
+    if lr is not None:
+        for group in optimizer.param_groups:
+            group["lr"] = float(lr)
+    return epoch
+
+
+def load_pretrained_backbone(model: torch.nn.Module, path: str,
+                             backbone: str) -> None:
+    """Loads a torchvision-layout ``state_dict`` file (bare, or under
+    ``'state_dict'``) into ``model.backbone`` in place: ``features.*``
+    strictly into ``backbone.features``; ``classifier.*`` is not used.
+    Only VGG-16 is ported; another backbone raises."""
+    if backbone != "vgg16":
+        item = _BACKBONE_ITEM.get(backbone)
+        raise NotImplementedError(
+            f"pretrained {backbone!r} weights: only vgg16 is ported"
+            + (f"; {backbone} comes with ROADMAP.md §1 item {item}"
+               if item else ""))
+    state = _read(path)
+    if "state_dict" in state:
+        state = state["state_dict"]
+    model.backbone.features.load_state_dict(
+        {k[len("features."):]: v for k, v in state.items()
+         if k.startswith("features.")}, strict=True)

@@ -48,10 +48,10 @@ _SIGNATURES = {
     # features, boxes, out, B, H, W, C, N, KH, KW, dtype, stream
     "din_roi_align": [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64, _c_i64,
                       _c_i64, _c_i64, _c_i64, ctypes.c_int, _c_ptr],
-    # g, ys, xs, df32, B, H, W, C, N, KH, KW, dtype, stream
-    "din_roi_align_bwd": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64,
-                          _c_i64, _c_i64, _c_i64, _c_i64, _c_i64,
-                          ctypes.c_int, _c_ptr],
+    # g, boxes, df, B, H, W, C, N, KH, KW, dtype, stream
+    "din_roi_align_bwd": [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64,
+                          _c_i64, _c_i64, _c_i64, _c_i64, ctypes.c_int,
+                          _c_ptr],
     # x, w0, b0, w2, b2, out, F, H, W, dtype, stream
     "din_fused_stem": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64,
                        _c_i64, _c_i64, ctypes.c_int, _c_ptr],
@@ -163,16 +163,18 @@ def dtype_code(dtype) -> int:
     raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
 
 
-def require_cuda_input(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
+def require_cuda_input(t: torch.Tensor, name: str, dtypes, ndim: int,
+                       contiguous: bool = True) -> None:
     """Checks a CUDA kernel input; raises on anything the kernel does not
-    take (no copy, no fallback)."""
+    take (no copy, no fallback).  ``contiguous=False`` leaves the layout to
+    the caller."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous (NHWC)")
 
 

@@ -13,21 +13,25 @@ The JAX package's Pallas kernel (``_roi_align_pallas_kernel``) built a
 one-hot interpolation matrix for the TPU's matrix unit; on the card the op
 is a gather, so the kernel (csrc/roi_align.cu) and the plain version
 ``roi_align_ref`` both read the four corner rows directly.  The plain
-version takes its sample centres from ``_sample_grid`` below; the kernel
-computes the same centres from the boxes itself, in ``_sample_grid``'s order
-with each op rounded once, so the two agree on which samples are in range
-even at the map border (tests/test_torch_roi_grid.py pins that order), and
-it rounds its blend op by op in the plain version's order, so the two agree
-bit for bit.  K1b (csrc/roi_align_bwd.cu) still takes the centres from
-``_sample_grid``.
+version takes its sample centres from ``_sample_grid`` below; both kernels
+compute the same centres from the boxes themselves (csrc/roi_grid.cuh), in
+``_sample_grid``'s order with each op rounded once, so kernels and plain
+versions agree on which samples are in range even at the map border
+(tests/test_torch_roi_grid.py pins that order), and K1 rounds its blend op
+by op in the plain version's order, so the two agree bit for bit.
 
 The gradient flows to the features only: boxes are constants, as in the
 JAX package (``stop_gradient``, roi_align.py:348) and the reference.  It is
 the transpose of the blend: each in-range sample adds w*g to its four
 corner rows of an f32 map, cast to the features' dtype at the end, as
 ``_pallas_bwd`` (roi_align.py:302-309) computes it with einsums.  JAX has no
-Pallas kernel for it; the port's K1b (csrc/roi_align_bwd.cu) scatters with
-atomics, and ``roi_align_bwd_ref`` with ``index_add_``.
+Pallas kernel for it.  ``roi_align_bwd_ref`` adds with ``index_add_``:
+corner 00 of every sample in (frame, box, i, j) order, then 01, 10, 11.
+The port's K1b (csrc/roi_align_bwd.cu) gathers instead: each output element
+is owned by one thread, which adds its contributions in that same order and
+writes the result once in the output's dtype, so it is deterministic and
+equals the plain version run on the CPU bit for bit
+(tests/test_torch_roi_bwd_order.py emulates its loop).
 
 ``roi_align`` and ``roi_align_bwd`` on CPU tensors run the plain versions;
 on CUDA tensors they launch the kernels or raise.
@@ -159,28 +163,37 @@ def roi_align_bwd(g: torch.Tensor, boxes: torch.Tensor,
                   feature_hw: Tuple[int, int],
                   dtype: torch.dtype) -> torch.Tensor:
     """Gradient of ``roi_align`` with respect to the features: g
-    [B,N,KH,KW,C] (f32 or bf16; made contiguous), boxes [B,N,4] -> [B,H,W,C]
-    in ``dtype``.  Counts its kernel launches in ``roi_align_bwd.launches``.
-    """
+    [B,N,KH,KW,C] (f32 or bf16), boxes [B,N,4] -> [B,H,W,C] in ``dtype``
+    (on the card g's dtype, as the autograd Function passes it).  A CUDA g
+    that is not contiguous (the trunk's channel-major flatten hands one
+    over) is copied first, counted in ``roi_align_bwd.g_copies``.  Counts
+    its kernel launches in ``roi_align_bwd.launches``."""
     if g.device.type == "cpu":
         return roi_align_bwd_ref(g, boxes, feature_hw, dtype)
-    g = g.contiguous()
-    native.require_cuda_input(g, "g", _FLOAT_TYPES, 5)
+    native.require_cuda_input(g, "g", _FLOAT_TYPES, 5, contiguous=False)
     _check_boxes(boxes, g.shape[0], g.device)
+    if boxes.shape[1] != g.shape[1]:
+        raise ValueError(f"boxes {tuple(boxes.shape)} and g "
+                         f"{tuple(g.shape)} differ in N")
+    if dtype != g.dtype:
+        raise TypeError(f"the kernel writes g's dtype {g.dtype}, asked for "
+                        f"{dtype}")
+    if not g.is_contiguous():
+        g = g.contiguous()
+        roi_align_bwd.g_copies += 1
     B, N, KH, KW, C = g.shape
     H, W = feature_hw
-    ys, xs = _sample_grid(boxes.float(), (KH, KW))
-    ys, xs = ys.contiguous(), xs.contiguous()
-    df = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device)
+    # the kernel computes the sample centres and writes every element
+    df = torch.empty((B, H, W, C), dtype=dtype, device=g.device)
+    boxes = boxes.float().contiguous()
     lib = native.library()
     with torch.cuda.device(g.device):
         code = lib.din_roi_align_bwd(
-            g.data_ptr(), ys.data_ptr(), xs.data_ptr(), df.data_ptr(),
-            B, H, W, C, N, KH, KW, native.dtype_code(g.dtype),
-            native.current_stream(g))
+            g.data_ptr(), boxes.data_ptr(), df.data_ptr(), B, H, W, C, N, KH,
+            KW, native.dtype_code(g.dtype), native.current_stream(g))
     native.check(code, "roi_align_bwd")
     roi_align_bwd.launches += 1
-    return df.to(dtype)
+    return df
 
 
 def _check_boxes(boxes: torch.Tensor, B: int, device) -> None:
@@ -227,3 +240,4 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor,
 
 roi_align.launches = 0
 roi_align_bwd.launches = 0
+roi_align_bwd.g_copies = 0

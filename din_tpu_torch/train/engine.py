@@ -1,6 +1,6 @@
 """Training loop of the port, stages 1 and 2 (port of din_tpu/train/
 engine.py: ``make_train_step`` :75-119, ``make_eval_step``, ``_epoch_info``
-:224-250, the weight loading of ``setup_training`` :355-380 and the epoch
+:224-250, the weight loading of ``setup_training`` :355-421 and the epoch
 loop of ``train_net`` :555-645), on one device.
 
 A step is forward, loss (``compute_losses``; stage 1 takes per-frame labels,
@@ -13,7 +13,11 @@ accuracy.  Stage 2 then writes one checkpoint
 ``stage1_epoch{E}_{acc:.2f}%.pth`` when the accuracy is the best so far or
 ties it.  Stage 2 starts from a stage-1 file (``cfg.load_backbone_stage2``,
 ``cfg.stage1_model_path``: backbone and ``fc_emb`` grafted) or else resumes
-a stage-2 checkpoint (``cfg.stage2model``: params, Adam state, epoch).
+a stage-2 checkpoint (``cfg.stage2model``: params, Adam state, epoch);
+stage 1 may start from a torchvision VGG-16 file
+(``cfg.pretrained_backbone_path``); either may start from a reference
+``.pth`` (``cfg.ref_checkpoint_path``) and adopt its Adam state
+(``cfg.ref_resume_optimizer``).
 
 Not ported: preemption and resume of a partial epoch, gradient
 accumulation, the profiler hook, the MAD diagnostic, ``test_before_train``
@@ -31,6 +35,9 @@ import torch
 from din_tpu_torch.data.loader import BatchLoader, to_device
 from din_tpu_torch.data.synthetic import return_dataset
 from din_tpu_torch.models.registry import build_model, resolve_device
+from din_tpu_torch.nn.ref_import import (load_pretrained_backbone,
+                                         load_reference_checkpoint,
+                                         load_reference_optimizer)
 from din_tpu_torch.train.checkpoint import (load_backbone_stage2, load_state,
                                             save_stage1_components,
                                             save_state)
@@ -99,19 +106,45 @@ def epoch_info(metric_list: List[Dict[str, np.ndarray]], epoch: int,
 
 def setup_training(cfg, device=None):
     """(model, optimizer, start_epoch) for ``cfg`` on ``device`` (default:
-    the card): random weights from ``cfg.train_random_seed``; in stage 2
-    with the backbone and ``fc_emb_1`` of ``cfg.stage1_model_path`` when
+    the card), loading weights in the JAX package's order
+    (din_tpu/train/engine.py:358-421) and logging each load to
+    ``cfg.log_path``: random weights from ``cfg.train_random_seed``; then a
+    reference ``.pth`` (``cfg.ref_checkpoint_path``); then in stage 2 the
+    backbone and ``fc_emb_1`` of ``cfg.stage1_model_path`` when
     ``cfg.load_backbone_stage2`` is set, else the state of
-    ``cfg.stage2model`` when ``cfg.load_stage2model`` is set."""
+    ``cfg.stage2model`` when ``cfg.load_stage2model`` is set; in stage 1 a
+    pretrained backbone (``cfg.pretrained_backbone_path``); last, with
+    ``cfg.ref_resume_optimizer``, the reference file's Adam state, resuming
+    at its epoch + 1."""
     device = resolve_device(device)
     model = build_model(cfg, device=device)
-    optimizer = make_optimizer(cfg, model)
     start_epoch = 1
+    if cfg.ref_checkpoint_path:
+        skipped = load_reference_checkpoint(model, cfg.ref_checkpoint_path)
+        print_log(cfg.log_path, "Loaded reference checkpoint %s (%d keys "
+                  "skipped)" % (cfg.ref_checkpoint_path, len(skipped)))
+    optimizer = make_optimizer(cfg, model)
     if cfg.training_stage == 2:
         if cfg.load_backbone_stage2 and cfg.stage1_model_path:
             load_backbone_stage2(model, cfg.stage1_model_path)
+            print_log(cfg.log_path,
+                      "Loaded stage1 backbone: " + cfg.stage1_model_path)
         elif cfg.load_stage2model and cfg.stage2model:
             start_epoch = load_state(cfg.stage2model, model, optimizer) + 1
+            print_log(cfg.log_path, "Loading stage2 model: %s (resuming at "
+                      "epoch %d)" % (cfg.stage2model, start_epoch))
+        else:
+            print_log(cfg.log_path, "Not loading stage1 or stage2 model.")
+    elif cfg.pretrained_backbone_path:
+        load_pretrained_backbone(model, cfg.pretrained_backbone_path,
+                                 cfg.backbone)
+        print_log(cfg.log_path, "Loaded pretrained backbone: "
+                  + cfg.pretrained_backbone_path)
+    if cfg.ref_checkpoint_path and cfg.ref_resume_optimizer:
+        start_epoch = load_reference_optimizer(
+            model, optimizer, cfg.ref_checkpoint_path, cfg) + 1
+        print_log(cfg.log_path, "Adopted reference optimizer state "
+                  "(resuming at epoch %d)" % start_epoch)
     return model, optimizer, start_epoch
 
 
@@ -138,15 +171,6 @@ def train_net(cfg, max_steps_per_epoch: Optional[int] = None,
     val_loader = BatchLoader(validation_set, cfg.test_batch_size,
                              shuffle=False, drop_last=False, pad_last=True)
     model, optimizer, start_epoch = setup_training(cfg, device)
-    if (cfg.training_stage == 2 and cfg.load_backbone_stage2
-            and cfg.stage1_model_path):
-        print_log(cfg.log_path,
-                  "Loaded stage1 backbone: " + cfg.stage1_model_path)
-    elif start_epoch > 1:
-        print_log(cfg.log_path, "Loading stage2 model: %s (resuming at "
-                  "epoch %d)" % (cfg.stage2model, start_epoch))
-    else:
-        print_log(cfg.log_path, "Not loading stage1 or stage2 model.")
 
     best = {"epoch": 0, "activities_acc": 0.0}
     for epoch in range(start_epoch, start_epoch + cfg.max_epoch):
