@@ -72,7 +72,29 @@ Phases, each timed, any failure exits non-zero:
    version's time and, where one exists, a PyTorch call's time (for K3 the
    unfused cuDNN stem, with K3's time as a ratio to it, and the layer route
    the model takes with a gradient; for K1 and K1b the wrapper and the
-   launch alone, and for K1b the copy of a channel-major gradient).
+   launch alone, and for K1b the copy of a channel-major gradient);
+8. Volleyball on disk: the host's CPU count, whether ``jpeglib.h`` and PIL
+   exist and the decoder in use (a native build that fails where
+   ``jpeglib.h`` exists fails the phase); a Volleyball tree the smoke writes
+   in the reference layout at 720x1280 (videos 0 and 1 of 4 training clips,
+   video 2 of 2 test clips, T=10, 12 track boxes a frame and one clip of 9,
+   JPEG quality 90 of a seeded gradient plus noise); every frame of the
+   clip-batch decode bit-equal to the single-frame decode and within a
+   JPEG tolerance of its source (mean |diff| <= 5, max <= 48); the tree
+   packed (``DINPACK1``) and read back bit-equal with 0 misses; the host
+   loader's clips/s over the stage-2 training set at batch 2 with 1 and 4
+   workers from the JPEGs, from the pack and from a warm FrameCache, beside
+   phase 5's step rate; the flagship stage 2 through ``train_net`` from the
+   JPEG tree, grafted from phase 4's stage-1 file (3 steps at batch 2, the
+   eval of the 2 test clips, a checkpoint), every step's and eval call's
+   batch on the card bit-equal to the loader's numpy batch, finite losses,
+   the launch counts, the epoch line's clips/s and peak memory; the same
+   run from the pack (first batch bit-equal, step-1 loss within rtol 1e-5,
+   0 misses, no live decode); ``--stage2-model-path <that checkpoint>
+   --eval-only`` (the same accuracy, loss within rtol 1e-5, K3 launched, no
+   step, no file written); and ``volleyball_stage1`` from the tree with its
+   ``test_before_train`` eval (epoch 0), one step of 8 one-frame clips and
+   10-frame eval clips.
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -86,6 +108,7 @@ import copy
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -448,6 +471,429 @@ def time_host(fn, iters: int) -> list:
     return out
 
 
+def write_volleyball_tree(root: Path, H: int, W: int, seed: int,
+                          clips=((0, (10, 20, 30, 40)), (1, (10, 20, 30, 40)),
+                                 (2, (10, 20))),
+                          short=(1, 20)) -> dict:
+    """A Volleyball tree in the reference layout (``<sid>/annotations.txt``,
+    ``<sid>/<src_fid>/<fid>.jpg`` for fid = src_fid-5 .. src_fid+4,
+    ``tracks_normalized.pkl``): JPEGs of quality 90 of a seeded gradient
+    plus noise, 12 normalized track boxes per frame (9 in clip ``short``,
+    padded by repetition when read), activities and actions from the class
+    lists.  Returns {path relative to root: the source uint8 frame}."""
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from din_tpu_torch.data.volleyball import ACTIONS, ACTIVITIES
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    base = np.stack([xx * 200 // W + 20, yy * 200 // H + 20,
+                     (xx + yy) * 160 // (H + W) + 40], -1).astype(np.int16)
+    tracks, jobs = {}, []
+    for sid, srcs in clips:
+        lines = []
+        for k, src in enumerate(srcs):
+            n = 9 if (sid, src) == short else 12
+            y1, x1 = rng.uniform(0.0, 0.8, (2, n))
+            h, w = rng.uniform(0.05, 0.2, (2, n))
+            acts = rng.randint(0, len(ACTIONS), n)
+            people = " ".join(
+                f"{int(x * W)} {int(y * H)} {int(b * W)} {int(a * H)} "
+                f"{ACTIONS[c]}" for x, y, b, a, c in zip(x1, y1, w, h, acts))
+            lines.append(f"{src}.jpg {ACTIVITIES[(4 * sid + k) % 8]} {people}")
+            noise = rng.randint(-24, 25, (H, W, 1), dtype=np.int16)
+            tracks[(sid, src)] = {}
+            (root / str(sid) / str(src)).mkdir(parents=True)
+            for j, fid in enumerate(range(src - 5, src + 5)):
+                d = rng.uniform(-0.01, 0.01, (n, 2))
+                tracks[(sid, src)][fid] = np.stack(
+                    [y1 + d[:, 0], x1 + d[:, 1], y1 + h + d[:, 0],
+                     x1 + w + d[:, 1]], -1)
+                jobs.append((f"{sid}/{src}/{fid}.jpg", noise, 37 * j + 5 * k))
+        (root / str(sid) / "annotations.txt").write_text(
+            "\n".join(lines) + "\n")
+    with open(root / "tracks_normalized.pkl", "wb") as f:
+        pickle.dump(tracks, f)
+
+    def encode(job):
+        rel, noise, shift = job
+        img = np.clip(base + np.roll(noise, shift, axis=1), 0,
+                      255).astype(np.uint8)
+        Image.fromarray(img).save(root / rel, "JPEG", quality=90)
+        return rel, img
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(encode, jobs))
+
+
+class EngineTap:
+    """Patches the training engine for one run and records what it hands
+    on: each step's and eval call's device batch (cloned on the step's
+    stream, i.e. what the step reads), each step's metrics, each eval
+    pass's info and the datasets ``return_dataset`` built."""
+
+    NAMES = ("train_step", "eval_step", "run_eval", "return_dataset")
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.saved = {n: getattr(engine, n) for n in self.NAMES}
+        self.train_batches, self.metrics, self.eval_batches = [], [], []
+        self.evals, self.datasets = [], []
+
+    def __enter__(self):
+        saved = self.saved
+
+        def train_step(model, optimizer, batch, cfg):
+            self.train_batches.append({k: v.clone() for k, v in batch.items()})
+            self.metrics.append(saved["train_step"](model, optimizer, batch,
+                                                    cfg))
+            return self.metrics[-1]
+
+        def eval_step(model, batch, cfg):
+            self.eval_batches.append({k: v.clone() for k, v in batch.items()})
+            return saved["eval_step"](model, batch, cfg)
+
+        def run_eval(*args, **kwargs):
+            self.evals.append(saved["run_eval"](*args, **kwargs))
+            return self.evals[-1]
+
+        def return_dataset(cfg):
+            self.datasets.append(saved["return_dataset"](cfg))
+            return self.datasets[-1]
+
+        for name, fn in (("train_step", train_step), ("eval_step", eval_step),
+                         ("run_eval", run_eval),
+                         ("return_dataset", return_dataset)):
+            setattr(self.engine, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.engine, name, fn)
+        return False
+
+
+def same_batches(tapped: list, batches: list) -> bool:
+    """The tapped device batches equal the loader's numpy batches, bit for
+    bit, key by key."""
+    return len(tapped) == len(batches) and all(
+        sorted(t) == sorted(b) and all(
+            torch.equal(t[k].cpu(), torch.from_numpy(np.ascontiguousarray(
+                b[k]))) for k in b)
+        for t, b in zip(tapped, batches))
+
+
+def volleyball_on_disk(dev, tmp: Path, s1_path: str, smi: str,
+                       step_clips_s: float, reset_counts, read_counts,
+                       image_size=(720, 1280), shrink=lambda c: c) -> dict:
+    """Phase 8: the flagship and stage 1 from a Volleyball tree on disk
+    (see the module docstring).  ``image_size`` and ``shrink`` (applied to
+    every config) size it down for a rehearsal on the CPU, where no kernel
+    launches and the counts are not checked.  Returns the launch counts of
+    each run."""
+    import importlib.util
+    import os
+
+    from din_tpu_torch import native as host
+    from din_tpu_torch.data.loader import BatchLoader
+    from din_tpu_torch.data.packed import PackedFrameStore, pack_frames
+    from din_tpu_torch.experiments.run import config_from_args
+    from din_tpu_torch.train import engine
+
+    on_card = dev.type == "cuda"
+    H, W = image_size
+    t0 = time.time()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    # -- probe: the decoder in use, and why -----------------------------------
+    try:
+        jpeglib = subprocess.run(
+            ["g++", "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+            capture_output=True, text=True, timeout=60).returncode == 0
+    except OSError:
+        jpeglib = False
+    pil = importlib.util.find_spec("PIL") is not None
+    dec = host.decoder()
+    if dec["error"] is None:
+        why = ""
+    else:       # the compiler's error line, else the last line
+        lines = dec["error"].strip().splitlines()
+        why = " (native build failed: %s)" % next(
+            (ln for ln in lines if "error" in ln), lines[-1]).strip()
+    log(f"[ondisk] host: {os.cpu_count()} CPUs, jpeglib.h "
+        f"{'present' if jpeglib else 'absent'}, PIL "
+        f"{'present' if pil else 'absent'}; decoder in use: "
+        f"{dec['decoder']}{why}")
+    require(not jpeglib or dec["decoder"] == "native",
+            f"jpeglib.h is present but the native decoder did not build:\n"
+            f"{dec['error']}")
+    require(pil, "PIL is needed to write the JPEG tree")
+
+    # -- a Volleyball tree at the training size -------------------------------
+    root = tmp / "videos"
+    tt = time.time()
+    sources = write_volleyball_tree(root, H, W, SEED + 9)
+    rels = sorted(sources)
+    jpeg_mb = sum((root / r).stat().st_size for r in rels) / 1e6
+    log(f"[ondisk] wrote {len(rels)} JPEG frames of {H}x{W} (quality 90, "
+        f"{jpeg_mb:.1f} MB), videos 0 and 1 of 4 clips (train), video 2 of 2 "
+        f"(test), tracks_normalized.pkl, in {time.time() - tt:.2f} s "
+        f"[{smi}]")
+
+    # -- decode: batch call against single frames and the sources; pack -------
+    tt = time.time()
+    before = host.decoder()["frames"]
+    decoded = {}
+    for d in sorted({r.rsplit("/", 1)[0] for r in rels}):
+        clip = [r for r in rels if r.startswith(d + "/")]
+        frames = host.load_frames([str(root / r) for r in clip], H, W)
+        for r, f in zip(clip, frames):
+            decoded[r] = f
+    batch_s = time.time() - tt
+    after = host.decoder()["frames"]
+    same = all(np.array_equal(decoded[r], host.load_frame(str(root / r), H, W))
+               for r in rels)
+    diff = [np.abs(decoded[r].astype(np.int16) - sources[r]) for r in rels]
+    mean_err = float(np.mean([d.mean() for d in diff]))
+    max_err = int(max(d.max() for d in diff))
+    log(f"[ondisk] decode of {len(rels)} frames by clip in {batch_s:.2f} s "
+        f"(frames by path: native {after['native'] - before['native']}, PIL "
+        f"{after['pil'] - before['pil']}); batch call == single-frame call "
+        f"bit for bit: {same}; against the source arrays mean |diff| "
+        f"{mean_err:.3f}, max |diff| {max_err} (JPEG tolerance: mean <= 5, "
+        f"max <= 48) [{smi}]")
+    require(same, "the batch decode differs from the single-frame decode")
+    require(mean_err <= 5 and max_err <= 48,
+            "decoded frames are farther from their sources than JPEG q90")
+    del diff, sources
+    pack = tmp / "frames.pack"
+    tt = time.time()
+    n = pack_frames(str(root), str(pack), H, W)
+    pack_s = time.time() - tt
+    store = PackedFrameStore(str(pack), root=str(root))
+    before = host.decoder()["frames"]
+    got = store.load_frames([str(root / r) for r in rels], H, W)
+    live = sum(host.decoder()["frames"].values()) - sum(before.values())
+    same = all(np.array_equal(g, decoded[r]) for g, r in zip(got, rels))
+    log(f"[ondisk] pack_frames: {n} frames, {pack.stat().st_size / 1e6:.1f} "
+        f"MB in {pack_s:.2f} s; PackedFrameStore read of every frame == the "
+        f"direct decode bit for bit: {same}; hits {store.hits}, misses "
+        f"{store.misses}, live decodes {live} [{smi}]")
+    require(same and store.misses == 0 and live == 0 and n == len(rels),
+            "the packed store differs from the direct decode")
+    del got, decoded, store
+
+    # -- loader rate on the host ---------------------------------------------
+    argv = ["--preset", "volleyball_stage2_dynamic", "--data-path", str(root),
+            "--max-epoch", "1", "--result-root", str(tmp),
+            "--stage1-model-path", s1_path]
+
+    def cfg_of(extra, preset_argv=argv):
+        c, _ = config_from_args(preset_argv + extra)
+        return shrink(c.replace(train_seqs=[0, 1], test_seqs=[2]))
+
+    def loader_rate(c, workers, passes=1):
+        train_set, _ = engine.return_dataset(c)
+        loader = BatchLoader(train_set, c.batch_size, shuffle=True,
+                             num_workers=workers, seed=c.train_random_seed)
+        rates = []
+        for _ in range(passes):
+            loader.set_epoch(1)
+            tt = time.perf_counter()
+            clips = sum(len(b["images"]) for b in loader)
+            rates.append(clips / (time.perf_counter() - tt))
+        return rates, train_set
+
+    jpeg_cfg = cfg_of([])
+    (r1,), _ = loader_rate(jpeg_cfg, 1)
+    (r4,), _ = loader_rate(jpeg_cfg, 4)
+    (rp,), pset = loader_rate(cfg_of(["--packed-frames-path", str(pack)]), 4)
+    (rc0, rc1), cset = loader_rate(jpeg_cfg.replace(decode_cache_mb=1024), 4,
+                                   passes=2)
+    log(f"[ondisk] BatchLoader over the stage-2 training set ({len(pset)} "
+        f"clips of {jpeg_cfg.num_frames} frames, batch {jpeg_cfg.batch_size},"
+        f" host clock, decoder {dec['decoder']}): JPEGs 1 worker {r1:.3f} "
+        f"clips/s, 4 workers {r4:.3f}; pack 4 workers {rp:.3f} (misses "
+        f"{pset.cache.misses}); FrameCache 4 workers cold {rc0:.3f}, warm "
+        f"{rc1:.3f} (hits {cset.cache.hits}, misses {cset.cache.misses}); "
+        f"the training step alone (phase 5) {step_clips_s:.3f} clips/s "
+        f"[{smi}]")
+    require(pset.cache.misses == 0, "packed-store misses in the loader")
+
+    # -- the flagship stage 2 from the JPEG tree, then from the pack ----------
+    def stage2(extra, name):
+        c = cfg_of(["--exp-name", name] + extra)
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        frames0 = sum(host.decoder()["frames"].values())
+        tt = time.time()
+        with EngineTap(engine) as tap:
+            best = engine.train_net(c, max_steps_per_epoch=3, device=dev)
+        sync()
+        secs = time.time() - tt
+        counts = read_counts()
+        live = sum(host.decoder()["frames"].values()) - frames0
+        train_set, val_set = tap.datasets[0]
+        ref = BatchLoader(train_set, c.batch_size, shuffle=True,
+                          num_workers=c.num_workers, seed=c.train_random_seed)
+        ref.set_epoch(1)
+        ref_train = [b for _, b in zip(range(3), ref)]
+        ref_val = list(BatchLoader(val_set, c.test_batch_size, shuffle=False,
+                                   num_workers=c.num_workers, drop_last=False,
+                                   pad_last=True))
+        require(same_batches(tap.train_batches, ref_train)
+                and same_batches(tap.eval_batches, ref_val),
+                f"{name}: a batch on the device differs from the loader's")
+        losses = [float(m["loss"]) for m in tap.metrics]
+        require(len(losses) == 3 and all(map(math.isfinite, losses)),
+                f"{name}: step losses {losses}")
+        expect, how = derived_counts(c, 3, c.num_frames, len(ref_val),
+                                     c.num_frames)
+        require(not on_card or counts == expect,
+                f"{name}: launches {counts}, expected {expect}")
+        log_text = (Path(c.result_path) / "log.txt").read_text()
+        epoch_rate = float(re.findall(r"Throughput: ([0-9.]+) clips/sec",
+                                      log_text)[0])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0
+        log(f"[ondisk] {name}: train_net, flagship grafted from "
+            f"{Path(s1_path).name}, 3 steps at batch {c.batch_size} + eval "
+            f"of {len(val_set)} "
+            f"clips + checkpoint in {secs:.2f} s; each step's and eval "
+            f"call's batch on the device == the loader's numpy batch bit for "
+            f"bit; step losses {[round(v, 5) for v in losses]}; eval "
+            f"{tap.evals[-1]['activities_acc']:.2f}% loss "
+            f"{tap.evals[-1]['loss']:.6f}; live decodes {live}; epoch line "
+            f"{epoch_rate:.3f} clips/s against {step_clips_s:.3f} for the step"
+            f" alone; peak device memory {peak:.2f} GiB; launches {counts}, "
+            f"expected {expect} ({how}) [{smi}]")
+        return dict(cfg=c, best=best, tap=tap, losses=losses, counts=counts,
+                    live=live, store=train_set.cache)
+
+    t_jpeg = stage2([], "disk_jpeg")
+    t_pack = stage2(["--packed-frames-path", str(pack)], "disk_pack")
+    require(same_batches(t_pack["tap"].train_batches[:1],
+                         [{k: v.cpu().numpy() for k, v in
+                           t_jpeg["tap"].train_batches[0].items()}]),
+            "the pack run's first batch differs from the JPEG run's")
+    l_j, l_p = t_jpeg["losses"][0], t_pack["losses"][0]
+    require(abs(l_p - l_j) <= 1e-5 * abs(l_j),
+            f"step-1 loss from the pack {l_p} != from the JPEGs {l_j}")
+    require(t_pack["store"].misses == 0 and t_pack["live"] == 0,
+            f"the pack run decoded {t_pack['live']} frames live (misses "
+            f"{t_pack['store'].misses})")
+    log(f"[ondisk] pack run: first batch == the JPEG run's bit for bit; "
+        f"step-1 loss {l_p:.7f} against {l_j:.7f} (rtol 1e-5); store hits "
+        f"{t_pack['store'].hits}, misses {t_pack['store'].misses}, live "
+        f"decodes {t_pack['live']} [{smi}]")
+
+    # -- --eval-only from the JPEG run's checkpoint ---------------------------
+    ckpt = t_jpeg["best"]["checkpoint"]
+    ecfg = cfg_of(["--exp-name", "disk_eval", "--stage2-model-path", ckpt,
+                   "--eval-only"])
+    reset_counts()
+    with EngineTap(engine) as tap:
+        info = engine.train_net(ecfg, device=dev)
+    sync()
+    e_counts = read_counts()
+    want = t_jpeg["tap"].evals[-1]
+    written = sorted(p.name for p in Path(ecfg.result_path).iterdir())
+    e_expect, _ = derived_counts(ecfg, 0, ecfg.num_frames,
+                                 len(tap.eval_batches), ecfg.num_frames)
+    log(f"[ondisk] --stage2-model-path {Path(ckpt).name} --eval-only: "
+        f"epoch {info['epoch']}, {info['activities_acc']:.2f}% (train run's "
+        f"eval {want['activities_acc']:.2f}%), loss {info['loss']:.7f} "
+        f"(train run's {want['loss']:.7f}, rtol 1e-5); steps "
+        f"{len(tap.train_batches)}; files in its result dir {written}; "
+        f"launches {e_counts}, expected {e_expect} [{smi}]")
+    require(info["activities_acc"] == want["activities_acc"]
+            and abs(info["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+            and info["epoch"] == 1, "--eval-only does not reproduce the eval")
+    require(not tap.train_batches and written == ["log.txt"]
+            and (not on_card or e_counts == e_expect),
+            "--eval-only trained, wrote a file, or launched other kernels")
+    require(same_batches(tap.eval_batches, [
+        {k: v.cpu().numpy() for k, v in b.items()}
+        for b in t_jpeg["tap"].eval_batches]),
+        "--eval-only saw other batches than the train run's eval")
+
+    # -- stage 1 from the tree: test_before_train, 10-frame eval clips --------
+    s1 = cfg_of(["--exp-name", "disk_stage1"], preset_argv=[
+        "--preset", "volleyball_stage1", "--data-path", str(root),
+        "--max-epoch", "1", "--result-root", str(tmp)])
+    reset_counts()
+    tt = time.time()
+    with EngineTap(engine) as tap:
+        engine.train_net(s1, max_steps_per_epoch=1, device=dev)
+    sync()
+    s1_s = time.time() - tt
+    s1_counts = read_counts()
+    train_set, val_set = tap.datasets[0]
+    ref = BatchLoader(train_set, s1.batch_size, shuffle=True,
+                      num_workers=s1.num_workers, seed=s1.train_random_seed)
+    ref.set_epoch(1)
+    ref_val = list(BatchLoader(val_set, s1.test_batch_size, shuffle=False,
+                               num_workers=s1.num_workers, drop_last=False,
+                               pad_last=True))
+    eval_T = tap.eval_batches[0]["images"].shape[1]
+    s1_expect, how = derived_counts(s1, 1, 1, len(tap.eval_batches), eval_T)
+    s1_log = (Path(s1.result_path) / "log.txt").read_text()
+    losses = [float(m["loss"]) for m in tap.metrics]
+    log(f"[ondisk] stage 1 (volleyball_stage1, test_before_train="
+        f"{s1.test_before_train}) from the tree in {s1_s:.2f} s: evals at "
+        f"epochs {[e['epoch'] for e in tap.evals]} over {len(val_set)} clips "
+        f"of T={eval_T} (the finetune eval policy), {len(tap.metrics)} step "
+        f"of {len(train_set)} clips of "
+        f"T={tap.train_batches[0]['images'].shape[1]}, loss "
+        f"{[round(v, 5) for v in losses]}; batches == the loader's; launches "
+        f"{s1_counts}, expected {s1_expect} ({how}) [{smi}]")
+    require([e["epoch"] for e in tap.evals] == [0, 1]
+            and "====> Test at epoch #0" in s1_log, "no eval before training")
+    require(eval_T == 10 and tap.train_batches[0]["images"].shape[1] == 1
+            and all(map(math.isfinite, losses)) and len(losses) == 1,
+            "stage-1 clips or losses are off")
+    require(same_batches(tap.train_batches, list(ref))
+            and same_batches(tap.eval_batches, ref_val + ref_val),
+            "stage 1: a batch on the device differs from the loader's")
+    require(not on_card or s1_counts == s1_expect,
+            "stage-1 on-disk launch counts are off")
+    log(f"[ondisk] done in {time.time() - t0:.2f} s [{smi}]")
+    return {"ondisk_stage2": t_jpeg["counts"], "ondisk_pack": t_pack["counts"],
+            "ondisk_eval_only": e_counts, "ondisk_stage1": s1_counts}
+
+
+def derived_counts(c, steps: int, step_T: int, eval_calls: int,
+                   eval_T: int):
+    """Launches of ``steps`` training steps of clips of ``step_T`` frames
+    (every layer one by one: the stem needs its gradient) and ``eval_calls``
+    eval calls of clips of ``eval_T`` frames (no gradient: the fused stem
+    and 4 pools per chunk), chunked by ``auto_chunk``; and how."""
+    from din_tpu_torch.models.trunk import auto_chunk
+
+    H, W = c.image_size
+    step_frames = c.batch_size * step_T
+    step_chunks = step_frames // auto_chunk(
+        step_frames, H, W, c.frame_chunk, c.train_backbone)
+    eval_frames = c.test_batch_size * eval_T
+    eval_chunks = eval_frames // auto_chunk(
+        eval_frames, H, W, c.frame_chunk, c.train_backbone)
+    return ({"max_pool_2x2": 5 * steps * step_chunks
+             + 4 * eval_calls * eval_chunks,
+             "roi_align": steps + eval_calls,
+             "max_pool_2x2_bwd": 5 * steps * step_chunks,
+             "roi_align_bwd": steps,
+             "fused_stem": eval_calls * eval_chunks},
+            f"per step 5 pools x {step_chunks} chunk(s) of "
+            f"{step_frames // step_chunks} frames and 1 RoIAlign; eval "
+            f"{eval_calls} calls x {eval_chunks} chunk(s) of "
+            f"{eval_frames // eval_chunks} frames of the fused stem and 4 "
+            f"pools")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -457,8 +903,8 @@ def main() -> int:
     import torch.nn.functional as F
 
     from din_tpu_torch.data.loader import to_device
-    from din_tpu_torch.data.synthetic import (make_synthetic_batch,
-                                              return_dataset)
+    from din_tpu_torch.data.datasets import return_dataset
+    from din_tpu_torch.data.synthetic import make_synthetic_batch
     from din_tpu_torch.experiments.predict import Predictor
     from din_tpu_torch.experiments.presets import PRESETS
     from din_tpu_torch.experiments.profile_training import breakdown
@@ -846,38 +1292,25 @@ def main() -> int:
     steps = 3
 
     def expected_counts(c, n_val, steps=steps):
-        """Launches of ``steps`` training steps (every layer one by one: the
-        stem needs its gradient) and an eval pass over ``n_val`` clips (no
-        gradient: the fused stem and 4 pools per chunk)."""
-        H, W = c.image_size
-        step_frames = c.batch_size * (1 if c.training_stage == 1
-                                      else c.num_frames)
-        step_chunks = step_frames // auto_chunk(
-            step_frames, H, W, c.frame_chunk, c.train_backbone)
-        evals = -(-n_val // c.test_batch_size)
-        eval_frames = c.test_batch_size * c.num_frames
-        eval_chunks = eval_frames // auto_chunk(
-            eval_frames, H, W, c.frame_chunk, c.train_backbone)
-        return ({"max_pool_2x2": 5 * steps * step_chunks
-                 + 4 * evals * eval_chunks,
-                 "roi_align": steps + evals,
-                 "max_pool_2x2_bwd": 5 * steps * step_chunks,
-                 "roi_align_bwd": steps,
-                 "fused_stem": evals * eval_chunks},
-                f"per step 5 pools x {step_chunks} chunk(s) of "
-                f"{step_frames // step_chunks} frames and 1 RoIAlign; eval "
-                f"{evals} calls x {eval_chunks} chunk(s) of the fused stem "
-                f"and 4 pools")
+        """Launches of ``steps`` training steps and the eval passes over
+        ``n_val`` clips of T=num_frames (one, and one more before training
+        with ``test_before_train``)."""
+        passes = 1 + bool(c.test_before_train)
+        return derived_counts(
+            c, steps, 1 if c.training_stage == 1 else c.num_frames,
+            passes * -(-n_val // c.test_batch_size), c.num_frames)
 
-    def log_losses(path: Path, what: str) -> list:
+    def log_losses(path: Path, what: str, c) -> list:
         losses = [float(v) for v in re.findall(r"Loss: ([-+0-9.eEnaif]+)",
                                                path.read_text())]
-        require(len(losses) == 2 and all(math.isfinite(v) for v in losses),
+        require(len(losses) == 2 + bool(c.test_before_train)
+                and all(math.isfinite(v) for v in losses),
                 f"{what}: losses in log.txt: {losses}")
         return losses
 
     run_root = native.BUILD_DIR.parent / "smoke_runs"
     run_root.mkdir(parents=True, exist_ok=True)
+    disk_s1 = run_root / "ondisk_stage1.pth"
     with tempfile.TemporaryDirectory(dir=run_root) as tmp:
         vgg_path = str(Path(tmp) / "vgg16_pretrained.pth")
         vgg_state = write_vgg16_file(vgg_path, SEED + 5)
@@ -899,18 +1332,22 @@ def main() -> int:
         log(f"[stage1] train_net: volleyball_stage1 at full width "
             f"({s1cfg.image_size[0]}x{s1cfg.image_size[1]}, batch "
             f"{s1cfg.batch_size}, T=1 in training, {s1cfg.num_frames} in "
-            f"eval), {steps} steps + eval of {len(s1_val)} clips + component "
+            f"eval), an eval of {len(s1_val)} clips (test_before_train), "
+            f"{steps} steps + eval + component "
             f"file in {s1_s:.2f} s (host clock, synthetic clips made on the "
             f"host included); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         log(f"[stage1] launches {s1_counts}, expected {s1_expect} ({how})")
         require(s1_counts == s1_expect and min(s1_expect.values()) > 0,
                 "stage-1 launch counts are off")
-        s1_losses = log_losses(Path(tmp) / "stage1" / "log.txt", "stage 1")
+        s1_losses = log_losses(Path(tmp) / "stage1" / "log.txt", "stage 1",
+                               s1cfg)
         s1_path = s1_best.get("checkpoint")
         require(s1_path is not None and Path(s1_path).exists()
                 and Path(s1_path).name.startswith("stage1_epoch1_"),
                 f"no stage-1 component file: {s1_path}")
+        # phase 8 starts its on-disk stage 2 from this file too
+        shutil.copy(s1_path, disk_s1)
         comp = torch.load(s1_path, map_location="cpu", weights_only=True)
         require(sorted(comp) == ["backbone_state_dict",
                                  "fc_actions_state_dict",
@@ -998,7 +1435,8 @@ def main() -> int:
             f"{roi_align_bwd.g_copies} times")
         require(train_counts == expect and min(expect.values()) > 0,
                 "training launch counts are off")
-        train_losses = log_losses(Path(tmp) / "train" / "log.txt", "stage 2")
+        train_losses = log_losses(Path(tmp) / "train" / "log.txt", "stage 2",
+                                  tcfg)
         ckpt = best.get("checkpoint")
         require(ckpt is not None and Path(ckpt).exists(),
                 "no checkpoint written")
@@ -1346,14 +1784,25 @@ def main() -> int:
         f"ms (K3 / cuDNN stem = {k3_ms / k3_lib:.4f}), the model's layer "
         f"route (cuDNN convs, ReLU, K2) {k3_layers:.4f} ms")
     del sx, sw0, sb0, sw2, sb2, xn, xl
+    torch.cuda.empty_cache()
     log(f"[times] done in {time.time() - t0:.2f} s")
+
+    # -- 8. Volleyball on disk ------------------------------------------------
+    with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        s1_copy = Path(tmp) / disk_s1.name
+        shutil.move(disk_s1, s1_copy)
+        disk_counts = volleyball_on_disk(
+            dev, Path(tmp), str(s1_copy), smi,
+            mcfg.batch_size / ms_step * 1e3, reset_counts, read_counts)
     log(f"[total] {time.time() - t_all:.1f} s")
 
     def launches(name):
         return {"launches": train_counts[name],
                 "launches_by_path": {"serve": serve_counts[name],
                                      "train": train_counts[name],
-                                     "stage1": s1_counts[name]}}
+                                     "stage1": s1_counts[name],
+                                     **{path: c[name] for path, c in
+                                        disk_counts.items()}}}
 
     kernels = [
         {"name": "roi_align", "route": "cuda",

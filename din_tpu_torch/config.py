@@ -1,9 +1,10 @@
 """Experiment configuration of the port.
 
-A copy of the fields of din_tpu/config.py ``Config`` that the serving and
-training slices read, with the same names, defaults and meanings (reference
-config.py:5-116).  TPU-only knobs and those of unported parts are left out;
-they join as the slices that read them are ported (ROADMAP.md).
+A copy of the fields of din_tpu/config.py ``Config`` that the serving,
+training and data slices read, with the same names, defaults and meanings
+(reference config.py:5-116), and of its Volleyball and Collective splits.
+TPU-only knobs and those of unported parts are left out; they join as the
+slices that read them are ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -12,6 +13,20 @@ import dataclasses
 import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+# Volleyball split (reference config.py:28-30; din_tpu/config.py:21-26)
+VOLLEYBALL_TRAIN_SEQS = [
+    1, 3, 6, 7, 10, 13, 15, 16, 18, 22, 23, 31, 32, 36, 38, 39, 40, 41, 42,
+    48, 50, 52, 53, 54, 0, 2, 8, 12, 17, 19, 24, 26, 27, 28, 30, 33, 46, 49,
+    51,
+]
+VOLLEYBALL_TEST_SEQS = [4, 5, 9, 11, 14, 20, 21, 25, 29, 34, 35, 37, 43, 44,
+                        45, 47]
+
+# Collective split (reference config.py:33-34)
+COLLECTIVE_TEST_SEQS = [5, 6, 7, 8, 9, 10, 11, 15, 16, 25, 28, 29]
+COLLECTIVE_TRAIN_SEQS = [s for s in range(1, 45)
+                         if s not in COLLECTIVE_TEST_SEQS]
 
 
 @dataclasses.dataclass
@@ -26,9 +41,12 @@ class Config:
     test_batch_size: int = 8                        # eval batch size
     num_boxes: int = 12                             # actors per frame
 
-    # data (reference config.py:22-24); "synthetic" gives the fixture
-    # dataset, the only one ported so far
+    # data (reference config.py:22-34): a Volleyball tree
+    # (<root>/<sid>/annotations.txt, <sid>/<src_fid>/<fid>.jpg,
+    # tracks_normalized.pkl), or "synthetic" for the fixture dataset
     data_path: str = "data/volleyball/videos"
+    train_seqs: Sequence[int] = dataclasses.field(default_factory=list)
+    test_seqs: Sequence[int] = dataclasses.field(default_factory=list)
 
     # backbone (reference config.py:36-41)
     backbone: str = "res18"
@@ -43,7 +61,10 @@ class Config:
     actions_loss_weight: float = 1.0
     actions_weights: Optional[Sequence[float]] = None  # per-class CE weights
 
+    # frame sampling (reference config.py:50-53)
     num_frames: int = 3                             # T
+    num_before: int = 5
+    num_after: int = 4
     num_features_boxes: int = 1024                  # NFB
 
     # training (reference config.py:64-72)
@@ -58,6 +79,12 @@ class Config:
 
     # experiment control (reference config.py:74-81)
     training_stage: int = 1
+    # an eval pass on the loaded weights before the first epoch, logged at
+    # epoch 0 (reference train_net.py:93-95)
+    test_before_train: bool = False
+    # one eval pass on the loaded weights and no training, logged at the
+    # start epoch - 1 (din_tpu/config.py:95-99)
+    eval_only: bool = False
     exp_note: str = "Group-Activity-Recognition"
     exp_name: Optional[str] = None
     inference_module_name: str = "dynamic_volleyball"
@@ -100,6 +127,18 @@ class Config:
     frame_chunk: Optional[int] = None    # frames per backbone micro-batch
     result_root: str = "result"
 
+    # host input pipeline (din_tpu/config.py:163,182-191)
+    prefetch_depth: int = 2              # batches copied ahead of the step
+    num_workers: int = 4                 # host decode threads
+    decode_cache_mb: int = 0             # decoded-frame LRU budget (0 = off;
+    # ~2.7 MB per 720p frame, data/cache.py)
+    hflip_prob: float = 0.0              # train-time horizontal flip with
+    # the l/r activity swap (data/augment.py), beyond the reference: keep
+    # 0 for parity runs
+    packed_frames_path: Optional[str] = None  # store of decoded frames
+    # (data/packed.py; `python -m din_tpu_torch.data.packed`), read in
+    # place of the JPEGs; takes precedence over decode_cache_mb
+
     # derived by init_config()
     result_path: Optional[str] = None
     log_path: Optional[str] = None
@@ -107,6 +146,16 @@ class Config:
     def __post_init__(self):
         if self.dataset_name not in ("volleyball", "collective"):
             raise ValueError(f"unknown dataset {self.dataset_name!r}")
+        if not self.train_seqs or not self.test_seqs:
+            # the dataset's split and default root, as din_tpu sets them
+            if self.dataset_name == "volleyball":
+                self.train_seqs = list(VOLLEYBALL_TRAIN_SEQS)
+                self.test_seqs = list(VOLLEYBALL_TEST_SEQS)
+                self.data_path = "data/volleyball/videos"
+            else:
+                self.train_seqs = list(COLLECTIVE_TRAIN_SEQS)
+                self.test_seqs = list(COLLECTIVE_TEST_SEQS)
+                self.data_path = "data/collective"
 
     def init_config(self, need_new_folder: bool = True) -> "Config":
         """``result/<exp_name>/log.txt`` (reference config.py:107-116)."""

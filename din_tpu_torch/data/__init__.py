@@ -1,1 +1,2 @@
-"""Request fixtures of the port."""
+"""Data of the port: datasets (synthetic, Volleyball on disk), the frame
+cache and packed store, batching and the copy to the device."""

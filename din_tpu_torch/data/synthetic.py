@@ -1,8 +1,9 @@
 """Synthetic clips (numpy copy of din_tpu/data/synthetic.py
 ``SyntheticDataset``, lines 8-49, and ``make_synthetic_batch``, lines
-52-80, and of ``return_dataset``'s synthetic branch, din_tpu/data/
-datasets.py:16-18).  The same numpy draws in the same order, so the port
-and the JAX package see identical clips for the same seed and index."""
+52-80).  The same numpy draws in the same order, so the port and the JAX
+package see identical clips for the same seed and index.
+``data/datasets.py`` ``return_dataset`` serves them for
+``data_path="synthetic"`` and reads the Volleyball dataset otherwise."""
 
 from __future__ import annotations
 
@@ -48,18 +49,6 @@ class SyntheticDataset:
             actions[:, n_valid:] = -1
             sample["bboxes_num"] = np.full((T,), n_valid, np.int32)
         return sample
-
-
-def return_dataset(cfg):
-    """(train_set, val_set) for ``cfg.data_path == "synthetic"``, as the JAX
-    package builds them; the real Volleyball and Collective loaders are not
-    ported yet."""
-    if cfg.data_path != "synthetic":
-        raise NotImplementedError(
-            f"data_path {cfg.data_path!r}: only 'synthetic' is ported; the "
-            f"real-data loaders wait for the datasets (ROADMAP.md)")
-    return (SyntheticDataset(cfg, is_training=True, seed=1),
-            SyntheticDataset(cfg, size=16, is_training=False, seed=2))
 
 
 def make_synthetic_batch(cfg, batch_size, rng=None):

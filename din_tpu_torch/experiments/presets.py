@@ -28,9 +28,10 @@ def preset(name):
 def volleyball_stage1() -> Config:
     """scripts/train_volleyball_stage1.py:1-36 (VGG16)."""
     return Config("volleyball").replace(
-        training_stage=1, train_backbone=True, backbone="vgg16",
-        image_size=(720, 1280), out_size=(22, 40), emb_features=512,
-        batch_size=8, test_batch_size=1, num_frames=1,
+        training_stage=1, train_backbone=True, test_before_train=True,
+        backbone="vgg16", image_size=(720, 1280), out_size=(22, 40),
+        emb_features=512, num_before=5, num_after=4, batch_size=8,
+        test_batch_size=1, num_frames=1,
         train_learning_rate=1e-4, lr_plan={30: 5e-5, 60: 2e-5, 90: 1e-5},
         max_epoch=120,
         actions_weights=[[1., 1., 2., 3., 1., 2., 2., 0.2, 1.]],
@@ -42,7 +43,8 @@ def volleyball_stage2_dynamic() -> Config:
     """scripts/train_volleyball_stage2_dynamic.py:1-55 (vgg16, lite 128)."""
     return Config("volleyball").replace(
         inference_module_name="dynamic_volleyball", training_stage=2,
-        train_backbone=True, test_interval_epoch=1, backbone="vgg16",
+        train_backbone=True, test_before_train=False, test_interval_epoch=1,
+        backbone="vgg16",
         stage1_model_path="result/basemodel_VD_vgg16.pth",
         load_backbone_stage2=True, out_size=(22, 40), emb_features=512,
         group=1, stride=1, ST_kernel_size=((3, 3),), dynamic_sampling=True,

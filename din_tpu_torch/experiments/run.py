@@ -20,6 +20,18 @@ path`` starts stage 1 from a torchvision VGG-16 ``state_dict`` file;
 ``--ref-checkpoint-path`` grafts a ``.pth`` saved by the reference framework
 and ``--ref-resume-optimizer`` continues its training where it stopped
 (run.py:24-30,59-61).
+
+``--data-path`` names a Volleyball tree (``<root>/<sid>/annotations.txt``,
+``<sid>/<src_fid>/<fid>.jpg``, ``tracks_normalized.pkl``) or ``synthetic``;
+``--packed-frames-path`` reads its frames from a store packed by
+``python -m din_tpu_torch.data.packed``; ``--hflip-prob`` mirrors training
+clips with the left/right activity swap; ``--eval-only`` scores the loaded
+weights (``--stage2-model-path``, ``--ref-checkpoint-path``, ...) on the
+test split and trains nothing (run.py:94-103):
+
+    python -m din_tpu_torch.experiments.run \
+        --preset volleyball_stage2_dynamic --data-path data/volleyball/videos \
+        --stage2-model-path result/exp/stage2_epoch3_91.20%.pth --eval-only
 """
 
 from __future__ import annotations
@@ -51,6 +63,15 @@ def config_from_args(argv=None):
     p.add_argument("--pretrained-backbone-path", default=None,
                    help="torchvision state_dict file for the backbone's "
                         "ImageNet init (stage 1; VGG-16)")
+    p.add_argument("--packed-frames-path", default=None,
+                   help="store of decoded frames read in place of the JPEGs "
+                        "(python -m din_tpu_torch.data.packed)")
+    p.add_argument("--hflip-prob", type=float, default=None,
+                   help="train-time horizontal-flip probability (beyond "
+                        "the reference; keep unset for parity)")
+    p.add_argument("--eval-only", action="store_true",
+                   help="one eval pass on the loaded weights and exit, no "
+                        "training")
     p.add_argument("--result-root", default=None)
     p.add_argument("--exp-name", default=None)
     p.add_argument("--device", default=None,
@@ -77,6 +98,12 @@ def config_from_args(argv=None):
         overrides["ref_resume_optimizer"] = True
     if args.pretrained_backbone_path:
         overrides["pretrained_backbone_path"] = args.pretrained_backbone_path
+    if args.packed_frames_path:
+        overrides["packed_frames_path"] = args.packed_frames_path
+    if args.hflip_prob is not None:
+        overrides["hflip_prob"] = args.hflip_prob
+    if args.eval_only:
+        overrides["eval_only"] = True
     if args.result_root:
         overrides["result_root"] = args.result_root
     if args.exp_name:

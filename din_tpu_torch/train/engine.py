@@ -1,7 +1,13 @@
 """Training loop of the port, stages 1 and 2 (port of din_tpu/train/
 engine.py: ``make_train_step`` :75-119, ``make_eval_step``, ``_epoch_info``
-:224-250, the weight loading of ``setup_training`` :355-421 and the epoch
-loop of ``train_net`` :555-645), on one device.
+:224-250, the weight loading of ``setup_training`` :355-421, the loaders of
+``train_net`` :308-321, its ``eval_only`` and ``test_before_train`` passes
+:530-550 and its epoch loop :555-645), on one device.
+
+The data come from ``data/datasets.py`` ``return_dataset`` (synthetic clips
+or a Volleyball tree on disk, or its packed store), batched by
+``BatchLoader`` on ``cfg.num_workers`` decode threads and put on the device
+``cfg.prefetch_depth`` batches ahead of the step by ``prefetch_to_device``.
 
 A step is forward, loss (``compute_losses``; stage 1 takes per-frame labels,
 stage 2 frame 0's), backward and one Adam update.  Each epoch sets the lr of
@@ -11,17 +17,20 @@ the plan, pins the loader's shuffle epoch, takes its steps (at most
 accuracy.  Stage 2 then writes one checkpoint
 ``stage2_epoch{E}_{acc:.2f}%.pth``; stage 1 writes its component file
 ``stage1_epoch{E}_{acc:.2f}%.pth`` when the accuracy is the best so far or
-ties it.  Stage 2 starts from a stage-1 file (``cfg.load_backbone_stage2``,
-``cfg.stage1_model_path``: backbone and ``fc_emb`` grafted) or else resumes
-a stage-2 checkpoint (``cfg.stage2model``: params, Adam state, epoch);
-stage 1 may start from a torchvision VGG-16 file
+ties it.  ``cfg.test_before_train`` adds an eval pass logged at epoch 0
+before the first epoch; ``cfg.eval_only`` runs one eval pass on the loaded
+weights, logged at the start epoch - 1, returns its info and neither trains
+nor writes a file.  Stage 2 starts from a stage-1 file
+(``cfg.load_backbone_stage2``, ``cfg.stage1_model_path``: backbone and
+``fc_emb`` grafted) or else resumes a stage-2 checkpoint
+(``cfg.stage2model``: params, Adam state, epoch); stage 1 may start from a
+torchvision VGG-16 file
 (``cfg.pretrained_backbone_path``); either may start from a reference
 ``.pth`` (``cfg.ref_checkpoint_path``) and adopt its Adam state
 (``cfg.ref_resume_optimizer``).
 
 Not ported: preemption and resume of a partial epoch, gradient
-accumulation, the profiler hook, the MAD diagnostic, ``test_before_train``
-(ROADMAP.md).
+accumulation, the profiler hook, the MAD diagnostic (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,8 +41,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from din_tpu_torch.data.loader import BatchLoader, to_device
-from din_tpu_torch.data.synthetic import return_dataset
+from din_tpu_torch.data.datasets import return_dataset
+from din_tpu_torch.data.loader import BatchLoader, prefetch_to_device
 from din_tpu_torch.models.registry import build_model, resolve_device
 from din_tpu_torch.nn.ref_import import (load_pretrained_backbone,
                                          load_reference_checkpoint,
@@ -151,8 +160,8 @@ def setup_training(cfg, device=None):
 def run_eval(model, loader: BatchLoader, cfg, epoch: int,
              device: torch.device) -> Dict:
     timer = Timer()
-    metrics = [_to_host(eval_step(model, to_device(b, device), cfg))
-               for b in loader]
+    metrics = [_to_host(eval_step(model, b, cfg)) for b in
+               prefetch_to_device(loader, device, cfg.prefetch_depth)]
     return epoch_info(metrics, epoch, timer.timeit(), cfg.num_activities)
 
 
@@ -160,17 +169,27 @@ def train_net(cfg, max_steps_per_epoch: Optional[int] = None,
               device=None) -> Dict:
     """Full training loop of either stage (reference train_net.py:28-137).
     Returns the best eval info, with the path of the last file written under
-    ``"checkpoint"``."""
+    ``"checkpoint"``; with ``cfg.eval_only`` the info of its eval pass."""
     device = resolve_device(device)
     cfg.init_config()
     show_config(cfg)
     training_set, validation_set = return_dataset(cfg)
     train_loader = BatchLoader(training_set, cfg.batch_size, shuffle=True,
+                               num_workers=cfg.num_workers,
                                seed=cfg.train_random_seed)
     # remainder eval batches are padded (cycled) and masked
     val_loader = BatchLoader(validation_set, cfg.test_batch_size,
-                             shuffle=False, drop_last=False, pad_last=True)
+                             shuffle=False, num_workers=cfg.num_workers,
+                             drop_last=False, pad_last=True)
     model, optimizer, start_epoch = setup_training(cfg, device)
+
+    if cfg.eval_only:
+        info = run_eval(model, val_loader, cfg, start_epoch - 1, device)
+        show_epoch_info("Test", cfg.log_path, info)
+        return info
+    if cfg.test_before_train:
+        show_epoch_info("Test", cfg.log_path,
+                        run_eval(model, val_loader, cfg, 0, device))
 
     best = {"epoch": 0, "activities_acc": 0.0}
     for epoch in range(start_epoch, start_epoch + cfg.max_epoch):
@@ -181,9 +200,9 @@ def train_net(cfg, max_steps_per_epoch: Optional[int] = None,
         train_loader.set_epoch(epoch)
         timer = Timer()
         metrics = []
-        for i, batch in enumerate(train_loader):
-            metrics.append(train_step(model, optimizer,
-                                      to_device(batch, device), cfg))
+        for i, batch in enumerate(prefetch_to_device(
+                train_loader, device, cfg.prefetch_depth)):
+            metrics.append(train_step(model, optimizer, batch, cfg))
             if max_steps_per_epoch and i + 1 >= max_steps_per_epoch:
                 break
         metrics = [_to_host(m) for m in metrics]     # waits for the device
