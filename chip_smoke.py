@@ -22,7 +22,12 @@ Phases, each timed, any failure exits non-zero:
    versions on the card: f32 within 1e-5, resp. 1e-5 of max|df| for K1b,
    whose plain version adds with atomics there; bf16 within one bf16 ulp),
    and K1b against its plain version run on the CPU bit for bit in f32 and
-   bf16, two launches and a channel-major g bit-equal to each other;
+   bf16, two launches and a channel-major g bit-equal to each other; and
+   K1 and K1b at the collective path's shapes, a [20,15,23,512] ResNet-18
+   map with 13 person-sized boxes a frame, one on the border and 4
+   zero-padded (the same tolerances, f32 and bf16; the padded boxes give 0
+   in K1 and add nothing in K1b; K1b bit-equal to its plain version on the
+   CPU);
 3. full-width serving of the flagship preset ``volleyball_stage2_dynamic``
    (VGG-16, 720x1280, T=10, N=12, bf16 backbone compute, f32 weights and
    head) through ``Predictor(pad_to=2)`` with seeded random weights: three
@@ -72,7 +77,8 @@ Phases, each timed, any failure exits non-zero:
    version's time and, where one exists, a PyTorch call's time (for K3 the
    unfused cuDNN stem, with K3's time as a ratio to it, and the layer route
    the model takes with a gradient; for K1 and K1b the wrapper and the
-   launch alone, and for K1b the copy of a channel-major gradient);
+   launch alone, and for K1b the copy of a channel-major gradient; K1 and
+   K1b also at the collective shapes of phase 2);
 8. Volleyball on disk: the host's CPU count, whether ``jpeglib.h`` and PIL
    exist and the decoder in use (a native build that fails where
    ``jpeglib.h`` exists fails the phase); a Volleyball tree the smoke writes
@@ -94,7 +100,27 @@ Phases, each timed, any failure exits non-zero:
    --eval-only`` (the same accuracy, loss within rtol 1e-5, K3 launched, no
    step, no file written); and ``volleyball_stage1`` from the tree with its
    ``test_before_train`` eval (epoch 0), one step of 8 one-frame clips and
-   10-frame eval clips.
+   10-frame eval clips;
+9. the Collective Activity path (ResNet-18 with live BatchNorm, 480x720,
+   T=10, 13 actor slots; K1 and K1b only): a ResNet-18 ``BasenetCollective``
+   (``collective_stage1`` with ``backbone="res18"``) through ``train_net``
+   from a torchvision-layout ResNet-18 file with BatchNorm statistics that
+   the smoke writes (the loaded tensors equal the file's): 3 steps at batch
+   16 (T=1), an eval of 16 clips at batch 8 (5 chunks of 16 frames a call),
+   ``basemodel_CAD_res18.pth``; ``collective_stage2_dynamic`` grafted from
+   it (``backbone.*`` with its BatchNorm buffers and ``fc_emb_1`` equal the
+   file's before the first step): 3 steps at batch 2, the eval at batch 8,
+   a checkpoint; ms per step, clips/s and peak memory of both stages on one
+   batch, one profiled stage-2 step; ``Predictor(pad_to=2)`` requests of 1,
+   3 (13, 1 and 7 actors) and 1 clips (rows sum to 1, the repeated clip's
+   answer, a padded box moved onto the map changes nothing, 1-clip
+   latency); the card against the CPU at 128x192, T=3 (posteriors within
+   1e-4, 3 training steps' losses within rtol 1e-4); a Collective Activity
+   tree at 480x720 that the smoke writes (sequences 1 and 2 train, 5 test)
+   and its pack: stage 2 from each (batches on the card bit-equal to the
+   loader's, the pack's first batch and step-1 loss equal the JPEGs'), and
+   ``--eval-only`` of the JPEG run's checkpoint; launch counts of every run
+   against ``derived_counts`` (K2, K2b and K3 0).
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -320,10 +346,12 @@ def stem_inputs(shape, dtype, gen: torch.Generator, b0_shift: float = 0.0,
 
 
 def check_params(got: dict, want: dict, steps: int, lr: float,
-                 what: str, share_bound=0.1) -> tuple:
+                 what: str, share_bound=0.1, ulps: int = 0) -> tuple:
     """The parameter bounds of tests/test_torch_train.py after a ReLU or
     pool flip: no element more than 2*lr per step apart (Adam moves each by
-    about lr whatever its gradient's size), and elementwise 2e-5 for all
+    about lr whatever its gradient's size), plus ``ulps`` times the f32
+    spacing of the element (the collective path: w + lr and w - lr are each
+    rounded, and at lr 5e-5 that shows), and elementwise 2e-5 for all
     but ``share_bound`` (10 %) of a tensor's elements (None: the share is
     only reported).  The flip bound applies: f32 sums on the two devices
     differ, and a pre-activation, pool window, actor max or DIN sample
@@ -332,12 +360,15 @@ def check_params(got: dict, want: dict, steps: int, lr: float,
     worst = share_worst = 0.0
     share_name = ""
     for name, w in want.items():
-        diff = (got[name].float().cpu() - w.float().cpu()).abs()
+        w = w.float().cpu()
+        diff = (got[name].float().cpu() - w).abs()
         share = float((diff > 2e-5).float().mean())
         worst = max(worst, float(diff.max()))
         if share > share_worst:
             share_worst, share_name = share, name
-        require(float(diff.max()) <= steps * 2 * lr,
+        tol = steps * 2 * lr + ulps * (
+            torch.nextafter(w.abs(), torch.full_like(w, math.inf)) - w.abs())
+        require(bool((diff <= tol).all()),
                 f"{what}: {name} differs by {float(diff.max())}")
         require(share_bound is None or share <= share_bound,
                 f"{what}: {name} has {share:.4f} of elements beyond 2e-5")
@@ -345,13 +376,13 @@ def check_params(got: dict, want: dict, steps: int, lr: float,
 
 
 def train_card_vs_cpu(cfg, cpu_model, steps: int = 3,
-                      free_share_bound=0.1) -> dict:
+                      free_share_bound=0.1, ulps: int = 0) -> dict:
     """``steps`` training steps of ``cpu_model`` on the CPU and, from copies
     of it, on the card: once from the CPU's state of each step (forced: one
     step's loss and update) and once along the card's own trajectory
     (free), on the batches of ``train_net``'s first epoch.  Forced losses
     within rtol 1e-4 of the CPU's; parameters within ``check_params``'s
-    bounds, the free trajectory's share beyond 2e-5 within
+    bounds (with ``ulps``), the free trajectory's share beyond 2e-5 within
     ``free_share_bound``.  Returns the losses and the largest
     differences."""
     from din_tpu_torch.data.loader import BatchLoader, to_device
@@ -380,7 +411,7 @@ def train_card_vs_cpu(cfg, cpu_model, steps: int = 3,
             losses[name].append(float(train_step(
                 m, opt, to_device(b, torch.device(d)), cfg)["loss"]))
         e, sh, _ = check_params(forced.state_dict(), cpu_model.state_dict(),
-                                1, lr, "card vs CPU, one step")
+                                1, lr, "card vs CPU, one step", ulps=ulps)
         perr, share = max(perr, e), max(share, sh)
     lerr = max(abs(a - b) / abs(b)
                for a, b in zip(losses["forced"], losses["cpu"]))
@@ -388,7 +419,7 @@ def train_card_vs_cpu(cfg, cpu_model, steps: int = 3,
             f"CPU {losses['cpu']}")
     free_perr, free_share, free_name = check_params(
         free.state_dict(), cpu_model.state_dict(), steps, lr,
-        f"card vs CPU, {steps} free steps", free_share_bound)
+        f"card vs CPU, {steps} free steps", free_share_bound, ulps)
     free_lerr = max(abs(a - b) / abs(b)
                     for a, b in zip(losses["free"], losses["cpu"]))
     return dict(losses=losses, lerr=lerr, perr=perr, share=share,
@@ -866,12 +897,482 @@ def volleyball_on_disk(dev, tmp: Path, s1_path: str, smi: str,
             "ondisk_eval_only": e_counts, "ondisk_stage1": s1_counts}
 
 
+def write_res18_file(path: str, seed: int) -> dict:
+    """A torchvision-layout ResNet-18 ``state_dict`` file, as a user's
+    pretrained ImageNet backbone would be: ``conv1``, ``bn1``,
+    ``layerK.*`` with random convs at their init scale (std sqrt(2 /
+    fan_in)), BatchNorm weights near 1, biases and running means near 0,
+    running variances in [0.5, 1.5], ``num_batches_tracked`` set, and a
+    small ``fc.*`` pair standing in for the classifier.  Returns the
+    tensors written."""
+    from din_tpu_torch.nn.backbones import RESNET_SEQ, ResNet18Backbone
+
+    top = {v: k for k, v in RESNET_SEQ.items()}
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for k, v in ResNet18Backbone(gen).state_dict().items():
+        head, idx, rest = k.split(".", 2)
+        if k.endswith("num_batches_tracked"):
+            t = torch.tensor(1000, dtype=torch.int64)
+        elif k.endswith("running_var"):
+            t = torch.rand(v.shape, generator=gen) + 0.5
+        elif v.dim() == 1:
+            t = 0.1 * torch.randn(v.shape, generator=gen) + float(
+                k.endswith("weight"))
+        else:
+            t = torch.randn(v.shape, generator=gen) * (
+                2.0 / math.prod(v.shape[1:])) ** 0.5
+        state[f"{top[head + '.' + idx]}.{rest}"] = t
+    state["fc.weight"] = torch.randn((8, 512), generator=gen)
+    state["fc.bias"] = torch.zeros(8)
+    torch.save(state, path)
+    return state
+
+
+def cad_boxes(n_frames: int, n_boxes: int, n_pad: int, H: int, W: int,
+              gen: torch.Generator) -> torch.Tensor:
+    """[F,N,4] boxes as the Collective Activity loader gives them on an
+    H x W map: person-sized boxes (about 1/12 of the width, 1/4 of the
+    height, the dataset's 60x120 px boxes on 720x480 frames) over the map,
+    one on the border, and the last ``n_pad`` slots zero-padded."""
+    w = (torch.rand(n_frames, n_boxes, generator=gen) * 0.5 + 0.75) * W / 12
+    h = (torch.rand(n_frames, n_boxes, generator=gen) * 0.5 + 0.75) * H / 4
+    x1 = torch.rand(n_frames, n_boxes, generator=gen) * (W - w)
+    y1 = torch.rand(n_frames, n_boxes, generator=gen) * (H - h)
+    boxes = torch.stack([x1, y1, x1 + w, y1 + h], -1)
+    boxes[:, 0] = torch.tensor([W - 2.0, H - 4.0, float(W), float(H)])
+    boxes[:, n_boxes - n_pad:] = 0
+    return boxes
+
+
+def write_collective_tree(root: Path, H: int, W: int, seed: int,
+                          seqs=(1, 2, 5)) -> int:
+    """A Collective Activity tree in the reference layout
+    (``seqNN/annotations.txt``, tab-separated ``frame x y w h action``;
+    ``seqNN/frameNNNN.jpg``): frames 1..20 of each sequence, JPEGs of
+    quality 90 of a seeded gradient plus noise at H x W, key frames 1 and
+    11 with 13, 9, 4, 11, 1 and 7 persons (boxes drifting a pixel a frame,
+    actions 1..6 with 1 = NA, never all NA).  Returns the JPEG count."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from din_tpu_torch.data.collective import FRAMES_SIZE
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    base = np.stack([xx * 200 // W + 20, yy * 200 // H + 20,
+                     (xx + yy) * 160 // (H + W) + 40], -1).astype(np.int16)
+    persons = iter((13, 9, 4, 11, 1, 7))
+    jobs = []
+    for sid in seqs:
+        fh, fw = FRAMES_SIZE[sid]
+        d = root / ("seq%02d" % sid)
+        d.mkdir(parents=True)
+        lines = []
+        for key in (1, 11):
+            n = next(persons)
+            xy = np.stack([rng.randint(0, fw - 100, n),
+                           rng.randint(0, fh - 150, n)], -1)
+            acts = rng.randint(1, 7, n)
+            acts[0] = rng.randint(2, 7)
+            for fid in range(key, key + 10):
+                lines += ["%d\t%d\t%d\t%d\t%d\t%d" % (fid, x, y, 60, 120, a)
+                          for (x, y), a in zip(xy + (fid - key), acts)]
+        (d / "annotations.txt").write_text("\n".join(lines) + "\n")
+        noise = rng.randint(-24, 25, (H, W, 1), dtype=np.int16)
+        jobs += [(d / ("frame%04d.jpg" % fid), noise, 37 * fid + sid)
+                 for fid in range(1, 21)]
+
+    def encode(job):
+        path, noise, shift = job
+        img = np.clip(base + np.roll(noise, shift, axis=1), 0,
+                      255).astype(np.uint8)
+        Image.fromarray(img).save(path, "JPEG", quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(encode, jobs))
+    return len(jobs)
+
+
+def cad_request(c, n_clips: int, counts, seed: int) -> dict:
+    """``n_clips`` synthetic clips at c's geometry whose actor counts are
+    ``counts`` (one per clip, for every frame): boxes zero and actions -1
+    after the count, as the loader pads them."""
+    from din_tpu_torch.data.synthetic import make_synthetic_batch
+
+    b = make_synthetic_batch(c, n_clips, rng=np.random.RandomState(seed))
+    n = np.repeat(np.asarray(counts, np.int32)[:, None], c.num_frames, 1)
+    real = np.arange(c.num_boxes)[None, None] < n[:, :, None]
+    b["boxes"] = np.where(real[..., None], b["boxes"], 0).astype(np.float32)
+    b["actions"] = np.where(real, b["actions"], -1).astype(np.int32)
+    b["bboxes_num"] = n
+    return b
+
+
+def collective_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
+                    image_size=(480, 720), shrink=lambda c: c) -> dict:
+    """Phase 9: the Collective Activity path (see the module docstring).
+    ``image_size`` and ``shrink`` (applied to every config) size it down
+    for a rehearsal on the CPU, where no kernel launches and the counts are
+    not checked.  Returns the launch counts of each run and the measured
+    numbers."""
+    from din_tpu_torch.data.datasets import return_dataset
+    from din_tpu_torch.data.loader import BatchLoader, to_device
+    from din_tpu_torch.data.packed import pack_frames
+    from din_tpu_torch.experiments.predict import Predictor
+    from din_tpu_torch.experiments.presets import PRESETS
+    from din_tpu_torch.experiments.run import config_from_args
+    from din_tpu_torch.models.registry import build_model
+    from din_tpu_torch.nn.backbones import RESNET_SEQ
+    from din_tpu_torch.train import engine
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    H, W = image_size
+    out_size = (-(-H // 32), -(-W // 32))
+    t0 = time.time()
+    counts, numbers = {}, {}
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0
+
+    def reset_peak():
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def check_counts(name, got, expect, how):
+        log(f"[cad] {name}: launches {got}, expected {expect} ({how})")
+        require(not on_card or (got == expect
+                                and expect["roi_align"] > 0),
+                f"{name}: launch counts are off")
+        counts[name] = got
+
+    def timed_steps(model, optimizer, c, n=6):
+        """ms of n steps on one batch already on the device (stage 1: clips
+        of one frame), the mean after the first, the peak memory."""
+        clips = c.replace(num_frames=1) if c.training_stage == 1 else c
+        batch = to_device(cad_request(
+            clips, c.batch_size, ([c.num_boxes, 1, 7] * c.batch_size)[
+                :c.batch_size], SEED + 21), dev)
+        reset_peak()
+        ms = time_host(lambda: engine.train_step(model, optimizer, batch, c),
+                       n) if on_card else [0.0] * n
+        warm = sum(ms[1:]) / len(ms[1:])
+        return ms, warm, peak_gib(), batch
+
+    # -- stage 1: a ResNet-18 BasenetCollective from a torchvision file -------
+    res_path = tmp / "resnet18_pretrained.pth"
+    res_state = write_res18_file(str(res_path), SEED + 11)
+    s1 = shrink(PRESETS["collective_stage1"]().replace(
+        backbone="res18", out_size=out_size, emb_features=512,
+        image_size=image_size, data_path="synthetic", max_epoch=1,
+        result_root=str(tmp), exp_name="cad_stage1",
+        pretrained_backbone_path=str(res_path)))
+    model, optimizer, _ = engine.setup_training(s1, dev)
+    feats = model.backbone.state_dict()
+    require(len(feats) == len(res_state) - 2 and all(
+        torch.equal(feats[RESNET_SEQ[k.split(".", 1)[0]] + "."
+                          + k.split(".", 1)[1]].cpu(), v)
+        for k, v in res_state.items() if not k.startswith("fc.")),
+        "the pretrained ResNet-18 differs from the file's tensors")
+    log(f"[cad] stage 1: setup_training loads the torchvision-layout "
+        f"ResNet-18 file's {len(feats)} tensors (BatchNorm statistics "
+        f"included) equal to the file's; fc.* unused")
+    ms, warm, peak, _ = timed_steps(model, optimizer, s1)
+    numbers["stage1_ms"], numbers["stage1_peak_gib"] = warm, peak
+    log(f"[cad] stage 1 step times {', '.join(f'{v:.1f}' for v in ms)} ms "
+        f"(host clock, synchronized; batch of {s1.batch_size} one-frame "
+        f"clips on the device, 13 actor slots); after the warm-up step "
+        f"{warm:.1f} ms = {s1.batch_size / max(warm, 1e-9) * 1e3:.3f} "
+        f"clips/s; peak device memory {peak:.2f} GiB [{smi}]")
+    del model, optimizer
+    _, s1_val = return_dataset(s1)
+    reset_peak()
+    reset_counts()
+    tt = time.time()
+    s1_best = engine.train_net(s1, max_steps_per_epoch=3, device=dev)
+    sync()
+    expect, how = derived_counts(s1, 3, 1, -(-len(s1_val)
+                                             // s1.test_batch_size),
+                                 s1.num_frames)
+    log(f"[cad] stage 1: train_net, 3 steps of {s1.batch_size} one-frame "
+        f"clips, an eval of {len(s1_val)} clips of T={s1.num_frames} at "
+        f"batch {s1.test_batch_size}, component file, in "
+        f"{time.time() - tt:.2f} s; peak device memory {peak_gib():.2f} GiB")
+    check_counts("cad_stage1", read_counts(), expect, how)
+    s1_log = (Path(s1.result_path) / "log.txt").read_text()
+    losses = [float(v) for v in re.findall(r"Loss: ([-+0-9.eEnaif]+)",
+                                            s1_log)]
+    require(len(losses) == 2 and all(map(math.isfinite, losses)),
+            f"stage 1 losses {losses}")
+    base = tmp / "basemodel_CAD_res18.pth"
+    shutil.copy(s1_best["checkpoint"], base)
+    comp = torch.load(base, map_location="cpu", weights_only=True)
+    require(int(comp["backbone_state_dict"]["features.1.num_batches_tracked"])
+            == 1000 + 3, "the stage-1 file's BatchNorm did not count 3 steps")
+    log(f"[cad] stage 1: train / eval loss {losses} (finite); "
+        f"{base.name} ({base.stat().st_size / 2 ** 20:.0f} MiB) with "
+        f"BatchNorm statistics (num_batches_tracked 1000 + 3)")
+
+    # -- stage 2: collective_stage2_dynamic grafted from that file ------------
+    s2 = shrink(PRESETS["collective_stage2_dynamic"]().replace(
+        image_size=image_size, out_size=out_size, data_path="synthetic",
+        max_epoch=1, result_root=str(tmp), exp_name="cad_stage2",
+        stage1_model_path=str(base)))
+    model, optimizer, _ = engine.setup_training(s2, dev)
+    for name, part, key in (("backbone", model.backbone,
+                             "backbone_state_dict"),
+                            ("fc_emb_1", model.fc_emb_1,
+                             "fc_emb_state_dict")):
+        state = part.state_dict()
+        require(sorted(state) == sorted(comp[key]) and all(
+            torch.equal(v.cpu(), comp[key][k]) for k, v in state.items()),
+            f"grafted {name} differs from the stage-1 file")
+    n_buf = sum(k.endswith(("running_mean", "running_var",
+                            "num_batches_tracked"))
+                for k in comp["backbone_state_dict"])
+    log(f"[cad] stage 2: setup_training grafts {base.name}: backbone.* "
+        f"({len(comp['backbone_state_dict'])} tensors, {n_buf} of them "
+        f"BatchNorm buffers) and fc_emb_1 equal the file's before the "
+        f"first step")
+    ms, warm, peak, sbatch = timed_steps(model, optimizer, s2)
+    numbers.update(stage2_ms=warm, stage2_peak_gib=peak,
+                   stage2_clips_s=s2.batch_size / max(warm, 1e-9) * 1e3)
+    log(f"[cad] stage 2 step times {', '.join(f'{v:.1f}' for v in ms)} ms "
+        f"(host clock, synchronized; batch of {s2.batch_size} clips of "
+        f"T={s2.num_frames}, {H}x{W}, 13 actor slots with 13, 1 real; "
+        f"dropout {s2.train_dropout_prob}); after the warm-up step "
+        f"{warm:.1f} ms per step = {numbers['stage2_clips_s']:.3f} clips/s; "
+        f"peak device memory {peak:.2f} GiB [{smi}]")
+    if on_card:
+        from din_tpu_torch.experiments.profile_training import breakdown
+
+        prof = breakdown(lambda: engine.train_step(model, optimizer, sbatch,
+                                                   s2), 1)
+        busy = prof["busy_us"]
+        require(busy > 0, "the profiler recorded no device time")
+        numbers["stage2_idle"] = 1 - busy / prof["wall_us"]
+        log(f"[cad] stage 2, one profiled step: wall "
+            f"{prof['wall_us'] / 1e3:.1f} ms, device busy {busy / 1e3:.1f} "
+            f"ms (idle share {numbers['stage2_idle']:.3f}); device time by "
+            f"kind: " + ", ".join(
+                f"{k} {v / 1e3:.2f} ms ({v / busy:.3f})"
+                for k, v in prof["by_category"].items()) + "; top: " + "; ".join(
+                f"{us / 1e3:.2f} ms x{n} {key[:60]}"
+                for us, n, key in prof["top"][:6]))
+    del model, optimizer, sbatch
+    if on_card:
+        torch.cuda.empty_cache()
+    _, s2_val = return_dataset(s2)
+    reset_peak()
+    reset_counts()
+    tt = time.time()
+    s2_best = engine.train_net(s2, max_steps_per_epoch=3, device=dev)
+    sync()
+    expect, how = derived_counts(s2, 3, s2.num_frames, -(-len(s2_val)
+                                                        // s2.test_batch_size),
+                                 s2.num_frames)
+    log(f"[cad] stage 2: train_net, 3 steps at batch {s2.batch_size}, an "
+        f"eval of {len(s2_val)} clips at batch {s2.test_batch_size}, a "
+        f"checkpoint, in {time.time() - tt:.2f} s; peak device memory "
+        f"{peak_gib():.2f} GiB [{smi}]")
+    check_counts("cad_stage2", read_counts(), expect, how)
+    s2_log = (Path(s2.result_path) / "log.txt").read_text()
+    losses = [float(v) for v in re.findall(r"Loss: ([-+0-9.eEnaif]+)",
+                                            s2_log)]
+    ckpt = s2_best.get("checkpoint")
+    require(len(losses) == 2 and all(map(math.isfinite, losses))
+            and ckpt is not None and Path(ckpt).exists(),
+            f"stage 2: losses {losses}, checkpoint {ckpt}")
+    log(f"[cad] stage 2: train / eval loss {losses} (finite); checkpoint "
+        f"{Path(ckpt).name} ({Path(ckpt).stat().st_size / 2 ** 20:.0f} MiB)")
+
+    # -- serving: Predictor(pad_to=2), mixed counts ---------------------------
+    model = build_model(s2, device=dev)
+    model.load_state_dict(torch.load(ckpt, map_location="cpu",
+                                     weights_only=True)["state_dict"])
+    _randomize_din(model, torch.Generator().manual_seed(SEED + 22))
+    predictor = Predictor(s2, model, pad_to=2, device=dev)
+    req = cad_request(s2, 3, [s2.num_boxes, 1, 7], SEED + 23)
+    requests = [{k: v[:1] for k, v in req.items()}, req,
+                {k: v[:1] for k, v in req.items()}]
+    reset_counts()
+    outs, req_ms = [], []
+    for r in requests:
+        tr = time.perf_counter()
+        outs.append(predictor(r["images"], r["boxes"], r["bboxes_num"])
+                    ["activities"])
+        sync()
+        req_ms.append((time.perf_counter() - tr) * 1e3)
+    padded_calls = sum(-(-len(r["images"]) // 2) for r in requests)
+    check_counts("cad_serve", read_counts(),
+                 {"max_pool_2x2": 0, "roi_align": padded_calls,
+                  "max_pool_2x2_bwd": 0, "roi_align_bwd": 0,
+                  "fused_stem": 0},
+                 f"1 RoIAlign per padded call of 2 clips, {padded_calls} "
+                 f"calls; no backward")
+    for out, r in zip(outs, requests):
+        require(out.shape == (len(r["images"]), s2.num_activities)
+                and np.isfinite(out).all()
+                and np.abs(out.sum(-1) - 1).max() <= 1e-5,
+                "collective posteriors are off")
+    rep = float(np.abs(outs[0] - outs[2]).max())
+    moved = {k: v[2:3].copy() for k, v in req.items()}
+    pad = np.arange(s2.num_boxes) >= 7
+    OH, OW = s2.out_size
+    moved["boxes"][:, :, pad] = np.asarray(
+        [OW / 3, OH / 3, OW / 2, OH / 1.5], np.float32)
+    still = predictor(moved["images"], moved["boxes"],
+                      moved["bboxes_num"])["activities"]
+    pad_diff = float(np.abs(still[0] - outs[1][2]).max())
+    require(rep <= 1e-6 and pad_diff <= 1e-6,
+            f"repeated clip differs by {rep}, a moved padded box by "
+            f"{pad_diff}")
+    lat = time_host(lambda: predictor(requests[0]["images"],
+                                      requests[0]["boxes"],
+                                      requests[0]["bboxes_num"]), 6) \
+        if on_card else [0.0]
+    numbers["serve_1clip_ms"] = float(np.median(lat))
+    log(f"[cad] serving Predictor(pad_to=2): requests of "
+        f"{[len(r['images']) for r in requests]} clips with counts "
+        f"{[r['bboxes_num'][:, 0].tolist() for r in requests]}: "
+        f"{', '.join(f'{v:.1f}' for v in req_ms)} ms (host clock, "
+        f"synchronized; the first includes cuDNN warm-up); rows finite, sum "
+        f"to 1; repeated clip max |diff| {rep:.3g}; the 7-actor clip with "
+        f"its 6 padded boxes moved onto the map max |diff| {pad_diff:.3g}; "
+        f"1-clip requests, 6 more: median {numbers['serve_1clip_ms']:.2f} "
+        f"ms (min {min(lat):.2f}, max {max(lat):.2f}) [{smi}]")
+    del predictor, model
+
+    # -- the card against the CPU at a small geometry -------------------------
+    if on_card:
+        small = s2.replace(image_size=(128, 192), out_size=(4, 6),
+                           num_frames=3, compute_dtype="float32",
+                           train_dropout_prob=0.0, load_backbone_stage2=False)
+        gen = torch.Generator().manual_seed(SEED)
+        cpu_model = build_model(small, device="cpu", generator=gen)
+        _randomize_din(cpu_model, gen)
+        clip = cad_request(small, 2, [13, 5], SEED + 24)
+        on_cpu = Predictor(small, cpu_model, device="cpu")(
+            clip["images"], clip["boxes"], clip["bboxes_num"])["activities"]
+        with no_tf32():
+            on_gpu = Predictor(small, copy.deepcopy(cpu_model))(
+                clip["images"], clip["boxes"], clip["bboxes_num"])[
+                    "activities"]
+        err = float(np.abs(on_gpu - on_cpu).max())
+        require(err <= 1e-4, f"collective card vs CPU max |diff| {err}")
+        log(f"[card-vs-cpu] collective, 2 clips (13 and 5 actors) T=3 "
+            f"128x192 f32 (TF32 off): max |diff| of posteriors {err:.3g} "
+            f"(<= 1e-4)")
+        with no_tf32():
+            r = train_card_vs_cpu(small, cpu_model, free_share_bound=None,
+                                  ulps=2)
+        log_train_card_vs_cpu("collective stage 2 (bounds plus 2 f32 ulps "
+                              "of each parameter)", small, r)
+        numbers["card_vs_cpu"] = err
+        del cpu_model
+
+    # -- on disk: a CAD tree at 480x720, its pack; --eval-only ----------------
+    root = tmp / "collective"
+    tt = time.time()
+    n_jpeg = write_collective_tree(root, H, W, SEED + 25)
+    pack = tmp / "collective.pack"
+    n = pack_frames(str(root), str(pack), H, W)
+    require(n == n_jpeg, f"packed {n} of {n_jpeg} frames")
+    log(f"[cad] wrote a Collective Activity tree of {n_jpeg} JPEG frames of "
+        f"{H}x{W} (sequences 1 and 2 train, 5 test, key frames 1 and 11) and "
+        f"its pack ({pack.stat().st_size / 1e6:.1f} MB) in "
+        f"{time.time() - tt:.2f} s")
+    argv = ["--preset", "collective_stage2_dynamic", "--data-path",
+            str(root), "--max-epoch", "1", "--result-root", str(tmp),
+            "--stage1-model-path", str(base)]
+
+    def cfg_of(extra):
+        c, _ = config_from_args(argv + extra)
+        return shrink(c.replace(train_seqs=[1, 2], test_seqs=[5],
+                                image_size=image_size, out_size=out_size))
+
+    def disk_run(extra, name):
+        c = cfg_of(["--exp-name", name] + extra)
+        reset_peak()
+        reset_counts()
+        tt = time.time()
+        with EngineTap(engine) as tap:
+            best = engine.train_net(c, max_steps_per_epoch=3, device=dev)
+        sync()
+        secs = time.time() - tt
+        got = read_counts()
+        train_set, val_set = tap.datasets[0]
+        ref = BatchLoader(train_set, c.batch_size, shuffle=True,
+                          num_workers=c.num_workers, seed=c.train_random_seed)
+        ref.set_epoch(1)
+        ref_train = list(ref)[:3]
+        ref_val = list(BatchLoader(val_set, c.test_batch_size, shuffle=False,
+                                   num_workers=c.num_workers, drop_last=False,
+                                   pad_last=True))
+        require(same_batches(tap.train_batches, ref_train)
+                and same_batches(tap.eval_batches, ref_val),
+                f"{name}: a batch on the device differs from the loader's")
+        losses = [float(m["loss"]) for m in tap.metrics]
+        require(len(losses) == len(ref_train) > 0
+                and all(map(math.isfinite, losses)),
+                f"{name}: step losses {losses}")
+        expect, how = derived_counts(c, len(losses), c.num_frames,
+                                     len(ref_val), c.num_frames)
+        log(f"[cad] {name}: train_net from {Path(c.data_path).name}"
+            f"{' via the pack' if c.packed_frames_path else ''}, "
+            f"{len(losses)} steps of {len(train_set)} clips at batch "
+            f"{c.batch_size} (counts {[b['bboxes_num'][:, 0].tolist() for b in ref_train]}), "
+            f"eval of {len(val_set)} clips, checkpoint, in {secs:.2f} s; "
+            f"batches on the device == the loader's bit for bit; step losses "
+            f"{[round(v, 5) for v in losses]}; eval "
+            f"{tap.evals[-1]['activities_acc']:.2f}% loss "
+            f"{tap.evals[-1]['loss']:.6f}; peak device memory "
+            f"{peak_gib():.2f} GiB [{smi}]")
+        check_counts(name, got, expect, how)
+        return dict(best=best, tap=tap, losses=losses)
+
+    d_jpeg = disk_run([], "cad_disk_jpeg")
+    d_pack = disk_run(["--packed-frames-path", str(pack)], "cad_disk_pack")
+    l_j, l_p = d_jpeg["losses"][0], d_pack["losses"][0]
+    require(same_batches(d_pack["tap"].train_batches[:1], [
+        {k: v.cpu().numpy() for k, v in
+         d_jpeg["tap"].train_batches[0].items()}])
+        and abs(l_p - l_j) <= 1e-5 * abs(l_j),
+        f"the pack run's first batch or step-1 loss ({l_p} vs {l_j}) "
+        f"differs from the JPEG run's")
+    ecfg = cfg_of(["--exp-name", "cad_eval", "--stage2-model-path",
+                   d_jpeg["best"]["checkpoint"], "--eval-only"])
+    reset_counts()
+    with EngineTap(engine) as tap:
+        info = engine.train_net(ecfg, device=dev)
+    sync()
+    want = d_jpeg["tap"].evals[-1]
+    e_expect, how = derived_counts(ecfg, 0, ecfg.num_frames,
+                                   len(tap.eval_batches), ecfg.num_frames)
+    log(f"[cad] --eval-only of the JPEG run's checkpoint: "
+        f"{info['activities_acc']:.2f}% (train run's "
+        f"{want['activities_acc']:.2f}%), loss {info['loss']:.7f} (train "
+        f"run's {want['loss']:.7f}, rtol 1e-5); steps "
+        f"{len(tap.train_batches)}")
+    require(info["activities_acc"] == want["activities_acc"]
+            and abs(info["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+            and not tap.train_batches, "--eval-only does not reproduce the eval")
+    check_counts("cad_eval_only", read_counts(), e_expect, how)
+    log(f"[cad] done in {time.time() - t0:.2f} s [{smi}]")
+    return dict(counts=counts, numbers=numbers)
+
+
 def derived_counts(c, steps: int, step_T: int, eval_calls: int,
                    eval_T: int):
     """Launches of ``steps`` training steps of clips of ``step_T`` frames
     (every layer one by one: the stem needs its gradient) and ``eval_calls``
     eval calls of clips of ``eval_T`` frames (no gradient: the fused stem
-    and 4 pools per chunk), chunked by ``auto_chunk``; and how."""
+    and 4 pools per chunk), chunked by ``auto_chunk``; and how.  ResNet-18
+    has no 2x2 pool and no VGG stem: one RoIAlign forward per call, one
+    backward per step, whatever the chunks."""
     from din_tpu_torch.models.trunk import auto_chunk
 
     H, W = c.image_size
@@ -881,6 +1382,16 @@ def derived_counts(c, steps: int, step_T: int, eval_calls: int,
     eval_frames = c.test_batch_size * eval_T
     eval_chunks = eval_frames // auto_chunk(
         eval_frames, H, W, c.frame_chunk, c.train_backbone)
+    if c.backbone == "res18":
+        return ({"max_pool_2x2": 0, "roi_align": steps + eval_calls,
+                 "max_pool_2x2_bwd": 0, "roi_align_bwd": steps,
+                 "fused_stem": 0},
+                f"ResNet-18: per step 1 RoIAlign forward and backward on "
+                f"the map of {step_chunks} backbone chunk(s) of "
+                f"{step_frames // step_chunks} frames; per eval call 1 "
+                f"RoIAlign on {eval_chunks} chunk(s) of "
+                f"{eval_frames // eval_chunks} frames; no 2x2 pool, no VGG "
+                f"stem")
     return ({"max_pool_2x2": 5 * steps * step_chunks
              + 4 * eval_calls * eval_chunks,
              "roi_align": steps + eval_calls,
@@ -1126,6 +1637,64 @@ def main() -> int:
             f"bit-equal to each other")
     del feats32, feats16, gb, gb16, got, ref, diff, ulp, g_dt, want, first
     del second, third, g_cm
+
+    # K1 and K1b at the collective path's shapes: a ResNet-18 map of a
+    # 480x720 frame (15x23), 13 boxes a frame of which 4 are zero-padded
+    # (they sample at -0.5, outside the map: K1 writes 0, K1b adds nothing)
+    cad = {}
+    cfeats = torch.randn((20, 15, 23, 512), generator=dgen, device=dev)
+    cboxes = cad_boxes(20, 13, 4, 15, 23, gen).to(dev)
+    chw = (15, 23)
+    for dtype in (torch.float32, torch.bfloat16):
+        f_dt = cfeats.to(dtype)
+        got, ref = roi_align(f_dt, cboxes, crop), roi_align_ref(f_dt, cboxes,
+                                                                 crop)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            ok = diff.max().item() <= 1e-5
+        else:
+            ok = bool((diff <= bf16_ulp(torch.maximum(
+                got.float().abs(), ref.float().abs()))).all())
+        require(ok and bool((got[:, 9:] == 0).all()),
+                f"roi_align {dtype} at the collective shapes: max |err| "
+                f"{diff.max().item()}, padded boxes 0: "
+                f"{bool((got[:, 9:] == 0).all())}")
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        cad["k1_" + tag] = diff.max().item()
+        g = torch.randn((20, 13, *crop, 512), generator=dgen,
+                        device=dev).to(dtype)
+        got = roi_align_bwd(g, cboxes, chw, dtype)
+        ref = roi_align_bwd_ref(g, cboxes, chw, torch.float32)
+        want = roi_align_bwd_ref(g.cpu(), cboxes.cpu(), chw, dtype)
+        g_pad = g.clone()
+        g_pad[:, :9] = 0
+        pad_only = roi_align_bwd(g_pad, cboxes, chw, dtype)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref).abs()
+        scale = ref.abs().max().item()
+        excess = (diff - (bf16_ulp(torch.maximum(got.float().abs(), ref.abs()))
+                          if dtype == torch.bfloat16 else 0)).max().item()
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        differ = int((got.cpu().view(bits) != want.view(bits)).sum())
+        require(excess <= 1e-5 * scale and differ == 0
+                and not bool(pad_only.any()),
+                f"roi_align_bwd {dtype} at the collective shapes: excess "
+                f"{excess} over {'1 ulp + ' if dtype == torch.bfloat16 else ''}"
+                f"1e-5 * {scale}, {differ} elements differ from the CPU plain "
+                f"version, padded boxes add {pad_only.abs().max().item()}")
+        cad["k1b_" + tag] = diff.max().item()
+    log(f"[kernels] K1 and K1b at the collective shapes [20,15,23,512] x 13 "
+        f"boxes (4 zero-padded per frame, one on the border): K1 vs plain "
+        f"max |err| f32 {cad['k1_f32']:.3g} (<= 1e-5), bf16 "
+        f"{cad['k1_bf16']:.3g} (<= 1 ulp), padded boxes give 0; "
+        f"K1b vs plain on the card max |err| f32 "
+        f"{cad['k1b_f32']:.3g}, bf16 "
+        f"{cad['k1b_bf16']:.3g} (against the f32 result; 1e-5 * "
+        f"max|df|, plus 1 ulp in bf16), bit-equal to the plain version on "
+        f"the CPU in f32 and bf16, and a gradient on the padded boxes alone "
+        f"adds nothing")
+    del cfeats, f_dt, got, ref, want, g, g_pad, pad_only, diff
     log(f"[kernels] done in {time.time() - t0:.2f} s")
 
     # -- 3. full-width serving ------------------------------------------------
@@ -1752,6 +2321,44 @@ def main() -> int:
         f"({g.numel() * g.element_size() / 1e6:.2f} MB each way)")
     del g, g_cm, df
 
+    # K1 and K1b at the collective path's shapes: a training step's and a
+    # serving call's 20 frames of 15x23, 13 boxes a frame, 4 zero-padded
+    cshape = (20, 15, 23, 512)
+    cf = torch.randn(cshape, generator=dgen, device=dev).bfloat16()
+    cb = cad_boxes(20, 13, 4, 15, 23, gen).to(dev)
+    cad_times = {}
+    cad_times["k1_ms"] = time_cuda(lambda: roi_align(cf, cb, crop), 100,
+                                   flush)
+    cad_times["k1_plain"] = time_cuda(lambda: roi_align_ref(cf, cb, crop),
+                                      100, flush)
+    cbytes = roi_sampled_bytes(cf, cb, crop, _sample_grid(cb, crop))
+    ys, xs = (t.cpu() for t in _sample_grid(cb, crop))
+    c_in = int((((ys >= 0) & (ys <= 14))[..., :, None]
+                & ((xs >= 0) & (xs <= 22))[..., None, :]).sum())
+    # 4 corner reads blended: 11 operations per sample in range and channel
+    cad_times["k1_bound"] = max(cbytes / HBM_BYTES_PER_S,
+                                11 * c_in * 512 / F32_FLOPS_PER_S) * 1e3
+    cg = torch.randn((20, 13, *crop, 512), generator=dgen,
+                     device=dev).bfloat16()
+    cad_times["k1b_ms"] = time_cuda(lambda: roi_align_bwd(
+        cg, cb, (15, 23), torch.bfloat16), 100, flush)
+    cad_times["k1b_plain"] = time_cuda(lambda: roi_align_bwd_ref(
+        cg, cb, (15, 23), torch.bfloat16), 100, flush)
+    cbbytes = (c_in * 512 * cg.element_size() + cb.numel() * 4
+               + cf.numel() * cf.element_size())
+    cad_times["k1b_bound"] = max(cbbytes / HBM_BYTES_PER_S,
+                                 8 * c_in * 512 / F32_FLOPS_PER_S) * 1e3
+    log(f"[times] K1 {list(cshape)} bf16 x 13 boxes (4 zero-padded; "
+        f"{c_in} of {ys.shape[0] * ys.shape[1] * 25} samples in range): "
+        f"wrapper {cad_times['k1_ms']:.4f} ms, bound "
+        f"{cad_times['k1_bound']:.5f} ms ({cbytes / 1e6:.2f} MB), plain "
+        f"{cad_times['k1_plain']:.4f} ms; K1b {[20, 13, *crop, 512]} bf16 -> "
+        f"{list(cshape)}: wrapper {cad_times['k1b_ms']:.4f} ms, bound "
+        f"{cad_times['k1b_bound']:.5f} ms ({cbbytes / 1e6:.2f} MB), plain "
+        f"{cad_times['k1b_plain']:.4f} ms; no single PyTorch call computes "
+        f"either [{smi}]")
+    del cf, cb, cg
+
     # K3 at one serving chunk; the yardsticks: the unfused cuDNN stem in
     # bf16 channels_last, and the route the model takes when the stem
     # needs its gradient (cuDNN convs with bias, ReLU, K2)
@@ -1794,6 +2401,11 @@ def main() -> int:
         disk_counts = volleyball_on_disk(
             dev, Path(tmp), str(s1_copy), smi,
             mcfg.batch_size / ms_step * 1e3, reset_counts, read_counts)
+
+    # -- 9. the Collective Activity path --------------------------------------
+    with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        cad_run = collective_path(dev, Path(tmp), smi, reset_counts,
+                                  read_counts)
     log(f"[total] {time.time() - t_all:.1f} s")
 
     def launches(name):
@@ -1802,14 +2414,22 @@ def main() -> int:
                                      "train": train_counts[name],
                                      "stage1": s1_counts[name],
                                      **{path: c[name] for path, c in
-                                        disk_counts.items()}}}
+                                        disk_counts.items()},
+                                     **{path: c[name] for path, c in
+                                        cad_run["counts"].items()}}}
 
     kernels = [
         {"name": "roi_align", "route": "cuda",
          "source": "din_tpu_torch/csrc/roi_align.cu",
          "replaces": "din_tpu/ops/roi_align.py:197", **launches("roi_align"),
          "max_abs_err": roi_err, "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None,
+         "collective": {"shape": [20, 15, 23, 512], "boxes": 13,
+                        "zero_padded": 4,
+                        "max_abs_err": cad["k1_bf16"],
+                        "ms": cad_times["k1_ms"],
+                        "plain_ms": cad_times["k1_plain"],
+                        "bound_ms": cad_times["k1_bound"]}},
         {"name": "max_pool_2x2", "route": "cuda",
          "source": "din_tpu_torch/csrc/max_pool_2x2.cu",
          "replaces": "din_tpu/ops/pool.py:48", **launches("max_pool_2x2"),
@@ -1830,7 +2450,13 @@ def main() -> int:
          **launches("roi_align_bwd"), "max_abs_err": roi_bwd_err,
          "ms": k1b_ms, "launch_ms": k1b_bare, "plain_ms": k1b_plain,
          "bound_ms": k1b_bound, "bound_by": "bytes", "library_ms": None,
-         "channel_major_ms": k1b_cm, "g_copy_ms": k1b_copy},
+         "channel_major_ms": k1b_cm, "g_copy_ms": k1b_copy,
+         "collective": {"shape": [20, 15, 23, 512], "boxes": 13,
+                        "zero_padded": 4,
+                        "max_abs_err": cad["k1b_bf16"],
+                        "ms": cad_times["k1b_ms"],
+                        "plain_ms": cad_times["k1b_plain"],
+                        "bound_ms": cad_times["k1b_bound"]}},
         {"name": "fused_stem", "route": "cuda",
          "source": "din_tpu_torch/csrc/fused_stem.cu",
          "replaces": "din_tpu/ops/stem_kernel.py:68",

@@ -67,6 +67,12 @@ class Config:
     num_after: int = 4
     num_features_boxes: int = 1024                  # NFB
 
+    # ARG head (reference config.py:55-62): the GCN baselines read them
+    # (ROADMAP.md §1 item 7); the collective and smoke presets set them
+    num_graph: int = 16                             # NG
+    num_features_gcn: int = 1024                    # NFG
+    tau_sqrt: bool = False
+
     # training (reference config.py:64-72)
     train_random_seed: int = 0
     train_learning_rate: float = 1e-4
@@ -87,6 +93,10 @@ class Config:
     eval_only: bool = False
     exp_note: str = "Group-Activity-Recognition"
     exp_name: Optional[str] = None
+    # True: BatchNorm normalises with its running statistics in training
+    # too and never updates them (the trunk's bn_train = train and not
+    # set_bn_eval; din_tpu/config.py:102)
+    set_bn_eval: bool = False
     inference_module_name: str = "dynamic_volleyball"
     # stage 2 starts from a stage-1 component file (.pth, the reference's
     # base_model.py:46-54 layout): its backbone and fc_emb are grafted

@@ -3,6 +3,9 @@ dataset.py:7-50 ``return_dataset``)."""
 
 from __future__ import annotations
 
+from din_tpu_torch.data.collective import (CollectiveDataset,
+                                           collective_all_frames,
+                                           collective_read_dataset)
 from din_tpu_torch.data.packed import make_frame_source
 from din_tpu_torch.data.synthetic import SyntheticDataset
 from din_tpu_torch.data.volleyball import (VolleyballDataset, load_tracks,
@@ -12,8 +15,9 @@ from din_tpu_torch.data.volleyball import (VolleyballDataset, load_tracks,
 
 def return_dataset(cfg):
     """(train_set, val_set) for cfg: the synthetic fixtures for
-    ``data_path == "synthetic"``, else the Volleyball tree (or its packed
-    store, ``cfg.packed_frames_path``) at ``cfg.data_path``."""
+    ``data_path == "synthetic"``, else the Volleyball or Collective
+    Activity tree (or its packed store, ``cfg.packed_frames_path``) at
+    ``cfg.data_path``."""
     if cfg.data_path == "synthetic":
         return (SyntheticDataset(cfg, is_training=True, seed=1),
                 SyntheticDataset(cfg, size=16, is_training=False, seed=2))
@@ -39,8 +43,19 @@ def return_dataset(cfg):
                                   **common))
 
     if cfg.dataset_name == "collective":
-        raise NotImplementedError(
-            "the Collective Activity dataset is not ported yet: it comes "
-            "with ResNet-18 and the collective path, ROADMAP.md §1 item 5")
+        train_anns = collective_read_dataset(cfg.data_path, cfg.train_seqs)
+        test_anns = collective_read_dataset(cfg.data_path, cfg.test_seqs)
+        common = dict(images_path=cfg.data_path, image_size=cfg.image_size,
+                      feature_size=cfg.out_size, num_boxes=cfg.num_boxes,
+                      num_frames=cfg.num_frames,
+                      is_finetune=(cfg.training_stage == 1),
+                      hflip_prob=cfg.hflip_prob,
+                      cache=make_frame_source(cfg))  # shared by train+val
+        return (CollectiveDataset(anns=train_anns,
+                                  frames=collective_all_frames(train_anns),
+                                  is_training=True, **common),
+                CollectiveDataset(anns=test_anns,
+                                  frames=collective_all_frames(test_anns),
+                                  is_training=False, **common))
 
     raise ValueError(f"unknown dataset {cfg.dataset_name}")

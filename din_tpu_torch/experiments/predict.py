@@ -4,13 +4,16 @@ Usage (library):
     model = build_model(cfg)                    # on the card
     predictor = Predictor(cfg, model, pad_to=2)
     out = predictor(images, boxes)              # dict of softmax posteriors
+    out = predictor(images, boxes, bboxes_num)  # collective models
 
 CLI demo on a synthetic clip (random weights from the seed):
     python -m din_tpu_torch.experiments.predict [--batch 1] [--device cuda]
 
-Loading the JAX package's ``.ckpt`` files comes with the checkpoint slice
-(ROADMAP.md); ``nn.ref_export.jax_params_to_state_dict`` converts JAX
-parameters already.
+``bboxes_num`` [B,T] is the true actor count of each frame; the collective
+models mask the padded actors with it, the volleyball models take none.  The
+JAX package's msgpack ``.ckpt`` files reach the port as reference ``.pth``
+files (``nn/ref_import.py``); ``nn.ref_export.jax_params_to_state_dict``
+converts JAX parameters and BatchNorm statistics.
 """
 
 from __future__ import annotations
@@ -85,20 +88,24 @@ class Predictor:
 
     def _run(self, images, boxes, bboxes_num=None) -> Dict:
         """One forward call on the device; softmax posteriors as numpy."""
-        del bboxes_num  # volleyball models take none
         images = torch.from_numpy(np.ascontiguousarray(images)).to(
             self.device)
         boxes = torch.from_numpy(np.ascontiguousarray(
             boxes, dtype=np.float32)).to(self.device)
+        if bboxes_num is not None:
+            bboxes_num = torch.from_numpy(np.ascontiguousarray(
+                bboxes_num, dtype=np.int32)).to(self.device)
         with torch.inference_mode():
-            out = self.model(images, boxes)
-            res = {k: torch.softmax(v.float(), dim=-1)
-                   for k, v in out.items()}
+            out = self.model(images, boxes, bboxes_num)
+            res = {k: torch.softmax(out[k].float(), dim=-1)
+                   for k in ("activities", "actions") if k in out}
         return {k: v.cpu().numpy() for k, v in res.items()}
 
     def __call__(self, images, boxes, bboxes_num=None) -> Dict:
-        """images [B,T,H,W,3] uint8; boxes [B,T,N,4] feature-map coords.
-        Returns {'activities': [B,G]} softmax posteriors as numpy."""
+        """images [B,T,H,W,3] uint8; boxes [B,T,N,4] feature-map coords;
+        bboxes_num [B,T] actor counts (collective models).  Returns the
+        softmax posteriors as numpy: {'activities': [B,G]}, and 'actions'
+        where the model has them (a Basenet), as din_tpu's Predictor."""
         if self.pad_to is not None:
             return chunked_padded_call(self._run, self.pad_to, images, boxes,
                                        bboxes_num)
@@ -125,7 +132,7 @@ def main(argv=None):
     model = build_model(cfg, device=args.device)
     predictor = Predictor(cfg, model, pad_to=args.pad_to, device=args.device)
     batch = make_synthetic_batch(cfg, batch_size=args.batch)
-    out = predictor(batch["images"], batch["boxes"])
+    out = predictor(batch["images"], batch["boxes"], batch.get("bboxes_num"))
     acts = out["activities"]
     top = acts.argmax(-1)
     for b in range(args.batch):

@@ -1,12 +1,18 @@
 """Presets of the port (copy of din_tpu/experiments/presets.py, the fields
 the ported slices read).  Other presets join with their models.
 
-The flagship starts stage 2 from the stage-1 backbone, as in the JAX
-package (presets.py:43,50), but from a ``.pth`` in the reference's stage-1
-component layout, which ``train_net`` writes for ``volleyball_stage1``
-(the port cannot read the JAX package's msgpack ``.ckpt``).  A missing
-stage-1 file raises; pass ``load_backbone_stage2=False`` to start from
-random weights."""
+The flagship and ``collective_stage2_dynamic`` start stage 2 from the
+stage-1 backbone, as in the JAX package (presets.py:43,50,172), but from a
+``.pth`` in the reference's stage-1 component layout, which ``train_net``
+writes for a stage-1 preset (the port cannot read the JAX package's msgpack
+``.ckpt``).  A missing stage-1 file raises; pass
+``load_backbone_stage2=False`` to start from random weights.
+
+``collective_stage1`` is Inception-v3, which comes with ROADMAP.md §1 item
+6: building its model raises until then.  A ResNet-18 stage 1 on the
+Collective Activity dataset, whose file ``collective_stage2_dynamic``
+grafts, is ``collective_stage1().replace(backbone="res18", out_size=(15,
+23), emb_features=512)``, as with din_tpu's Python API."""
 
 from __future__ import annotations
 
@@ -55,3 +61,46 @@ def volleyball_stage2_dynamic() -> Config:
         max_epoch=30,
         actions_weights=[[1., 1., 2., 3., 1., 2., 2., 0.2, 1.]],
         exp_note="Dynamic Volleyball_stage2_vgg16_litedim128")
+
+
+@preset("collective_stage1")
+def collective_stage1() -> Config:
+    """scripts/train_collective_stage1.py (Inception-v3)."""
+    return Config("collective").replace(
+        training_stage=1, train_backbone=True, backbone="inv3",
+        image_size=(480, 720), out_size=(57, 87), emb_features=1056,
+        num_boxes=13, num_actions=5, num_activities=4, num_frames=10,
+        batch_size=16, test_batch_size=8, train_learning_rate=1e-4,
+        lr_plan={}, max_epoch=100, exp_note="Collective_stage1")
+
+
+@preset("collective_stage2_dynamic")
+def collective_stage2_dynamic() -> Config:
+    """scripts/train_collective_stage2_dynamic.py:1-56 (res18)."""
+    return Config("collective").replace(
+        inference_module_name="dynamic_collective", training_stage=2,
+        train_backbone=True, load_backbone_stage2=True,
+        backbone="res18", image_size=(480, 720), out_size=(15, 23),
+        emb_features=512, stage1_model_path="result/basemodel_CAD_res18.pth",
+        num_boxes=13, num_actions=5, num_activities=4, num_frames=10,
+        num_graph=4, tau_sqrt=True, batch_size=2, test_batch_size=8,
+        test_interval_epoch=1, train_learning_rate=5e-5,
+        train_dropout_prob=0.5, weight_decay=1e-4, lr_plan={}, max_epoch=30,
+        group=1, stride=1, ST_kernel_size=(3, 3), dynamic_sampling=True,
+        sampling_ratio=[1], lite_dim=None, scale_factor=True,
+        beta_factor=False, hierarchical_inference=False,
+        parallel_inference=False, exp_note="Dynamic_collective")
+
+
+@preset("synthetic_smoke")
+def synthetic_smoke() -> Config:
+    """Tiny synthetic end-to-end config (CI / smoke): DynamicVolleyball on
+    ResNet-18, f32."""
+    return Config("volleyball").replace(
+        training_stage=2, inference_module_name="dynamic_volleyball",
+        data_path="synthetic", backbone="res18", image_size=(64, 96),
+        out_size=(2, 3), emb_features=512, num_frames=4, num_boxes=12,
+        num_features_boxes=64, num_features_gcn=64, lite_dim=32,
+        ST_kernel_size=((3, 3),), sampling_ratio=[1], beta_factor=False,
+        batch_size=4, test_batch_size=4, max_epoch=2, train_backbone=True,
+        compute_dtype="float32", exp_note="synthetic_smoke")

@@ -16,13 +16,16 @@ one stage-1 component file ``stage1_epoch{E}_{acc}%.pth`` (stage 1).
 stage 2 starts from (the flagship preset grafts one by default);
 ``--stage2-model-path`` resumes a stage-2 file instead (params, Adam state
 and epoch), as in the JAX package's run.py:78-83.  ``--pretrained-backbone-
-path`` starts stage 1 from a torchvision VGG-16 ``state_dict`` file;
+path`` starts stage 1 from a torchvision VGG-16 or ResNet-18 ``state_dict``
+file;
 ``--ref-checkpoint-path`` grafts a ``.pth`` saved by the reference framework
 and ``--ref-resume-optimizer`` continues its training where it stopped
 (run.py:24-30,59-61).
 
 ``--data-path`` names a Volleyball tree (``<root>/<sid>/annotations.txt``,
-``<sid>/<src_fid>/<fid>.jpg``, ``tracks_normalized.pkl``) or ``synthetic``;
+``<sid>/<src_fid>/<fid>.jpg``, ``tracks_normalized.pkl``), a Collective
+Activity tree (``<root>/seqNN/annotations.txt``,
+``seqNN/frameNNNN.jpg``) or ``synthetic``;
 ``--packed-frames-path`` reads its frames from a store packed by
 ``python -m din_tpu_torch.data.packed``; ``--hflip-prob`` mirrors training
 clips with the left/right activity swap; ``--eval-only`` scores the loaded
@@ -32,6 +35,16 @@ test split and trains nothing (run.py:94-103):
     python -m din_tpu_torch.experiments.run \
         --preset volleyball_stage2_dynamic --data-path data/volleyball/videos \
         --stage2-model-path result/exp/stage2_epoch3_91.20%.pth --eval-only
+
+The Collective Activity path (ResNet-18, T=10, 13 actors): stage 1 is
+Inception-v3 in the presets (ROADMAP.md §1 item 6); a ResNet-18 stage 1 is
+``collective_stage1().replace(backbone="res18", out_size=(15, 23),
+emb_features=512)`` through ``train_net``, whose component file stage 2
+grafts:
+
+    python -m din_tpu_torch.experiments.run \
+        --preset collective_stage2_dynamic --data-path data/collective \
+        --stage1-model-path result/basemodel_CAD_res18.pth
 """
 
 from __future__ import annotations
@@ -62,7 +75,7 @@ def config_from_args(argv=None):
                         "+ 1")
     p.add_argument("--pretrained-backbone-path", default=None,
                    help="torchvision state_dict file for the backbone's "
-                        "ImageNet init (stage 1; VGG-16)")
+                        "ImageNet init (stage 1; VGG-16 or ResNet-18)")
     p.add_argument("--packed-frames-path", default=None,
                    help="store of decoded frames read in place of the JPEGs "
                         "(python -m din_tpu_torch.data.packed)")

@@ -1,7 +1,9 @@
 """Model registry (port of din_tpu/models/registry.py).  Stage 1 builds the
 dataset's Basenet, stage 2 the ``inference_module_name`` model, as the
 reference's trainer dispatches (train_net_dynamic.py:75-93); models not
-ported yet name the ROADMAP.md slice that brings them."""
+ported yet name the ROADMAP.md item that brings them.  Every model takes
+``model(images, boxes, bboxes_num)``; the volleyball models ignore the
+count, the collective ones mask the padded actors with it."""
 
 from __future__ import annotations
 
@@ -9,24 +11,18 @@ from typing import Optional
 
 import torch
 
-from din_tpu_torch.models.base import BasenetVolleyball
-from din_tpu_torch.models.dynamic import DynamicVolleyball
+from din_tpu_torch.models.base import BasenetCollective, BasenetVolleyball
+from din_tpu_torch.models.dynamic import DynamicCollective, DynamicVolleyball
 
-BASENET_MODELS = {"volleyball": BasenetVolleyball}
-STAGE2_MODELS = {"dynamic_volleyball": DynamicVolleyball}
+BASENET_MODELS = {"volleyball": BasenetVolleyball,
+                  "collective": BasenetCollective}
+STAGE2_MODELS = {"dynamic_volleyball": DynamicVolleyball,
+                 "dynamic_collective": DynamicCollective}
 
-_SLICE_OF = {
-    "dynamic_collective": "ResNet-18 with BN and the collective path "
-                          "(slice 3)",
-    "dynamic_tce_volleyball": "the remaining heads (slice 5)",
-    "pctdm_volleyball": "the remaining heads (slice 5)",
-    "higcin_volleyball": "the remaining heads (slice 5)",
-    "at_volleyball": "the remaining heads (slice 5)",
-    "arg_volleyball": "the remaining heads (slice 5)",
-    "sacrf_biute_volleyball": "the remaining heads (slice 5)",
-    "gcnnet_volleyball": "the remaining heads (slice 5)",
-    "gcnnet_collective": "the remaining heads (slice 5)",
-}
+_SLICE_OF = {name: "the remaining heads (§1 item 7)" for name in (
+    "dynamic_tce_volleyball", "pctdm_volleyball", "higcin_volleyball",
+    "at_volleyball", "arg_volleyball", "sacrf_biute_volleyball",
+    "gcnnet_volleyball", "gcnnet_collective")}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -47,10 +43,6 @@ def build_model(cfg, device=None,
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train_random_seed)
     if cfg.training_stage == 1:
-        if cfg.dataset_name not in BASENET_MODELS:
-            raise NotImplementedError(
-                f"the {cfg.dataset_name} Basenet is not ported yet: it comes "
-                f"with the collective path of ROADMAP.md")
         model = BASENET_MODELS[cfg.dataset_name](cfg, generator)
     elif cfg.training_stage == 2:
         name = cfg.inference_module_name

@@ -9,7 +9,13 @@ The JAX trunk scans frame chunks, rematerialising each chunk's early
 convs, so that training fits the TPU's 16 GB; the port keeps the same
 ``_auto_chunk`` rule, which bounds the memory of one backbone call, and
 keeps every chunk's activations for the backward (no checkpointing: the
-card has 80 GB).  The JAX trunk flattens RoI features
+card has 80 GB).  A backbone with BatchNorm (ResNet-18) stays live under
+chunking as in the JAX trunk (trunk.py:241-254): each chunk normalises with
+its own batch statistics and folds them into the running ones, chunk after
+chunk in frame order; BN trains exactly when ``bn_train`` (the model's
+``train and not cfg.set_bn_eval``), also with a frozen backbone, where no
+gradient flows (trunk.py:296-297), and otherwise uses the running
+statistics.  The JAX trunk flattens RoI features
 position-major and ``export_model_state`` permutes ``fc_emb_1`` to the
 reference's channel-major order (ref_export.py:212-218); the port flattens
 channel-major like the reference, so the exported weight loads as it is.
@@ -50,14 +56,18 @@ def auto_chunk(n_frames: int, H: int, W: int, frame_chunk: Optional[int],
 def trunk_forward(backbone: nn.Module, images: torch.Tensor,
                   boxes: torch.Tensor, *, out_size: Tuple[int, int],
                   crop_size: Tuple[int, int], compute_dtype: torch.dtype,
-                  chunk: int, train_backbone: bool) -> torch.Tensor:
+                  chunk: int, train_backbone: bool,
+                  bn_train: bool = False) -> torch.Tensor:
     """images [B,T,H,W,3] uint8; boxes [B,T,N,4] feature-map coords.
     Returns RoI features [B,T,N,KH,KW,D] in the compute dtype.  Without
     ``train_backbone`` the backbone runs with no gradient (the JAX trunk's
-    ``stop_gradient``, trunk.py:296-297)."""
+    ``stop_gradient``, trunk.py:296-297).  ``bn_train`` puts the backbone's
+    BatchNorms in training mode (batch statistics, running update per
+    chunk), else in eval mode."""
     B, T, H, W, _ = images.shape
     N = boxes.shape[2]
     frames = images.reshape(B * T, H, W, 3)
+    backbone.train(bn_train)
     with torch.set_grad_enabled(torch.is_grad_enabled() and train_backbone):
         feats = torch.cat([backbone(prep_images(frames[s:s + chunk],
                                                 compute_dtype))
@@ -70,6 +80,21 @@ def trunk_forward(backbone: nn.Module, images: torch.Tensor,
     roi = roi_align(feats, boxes.reshape(B * T, N, 4).float(), crop_size)
     KH, KW = crop_size
     return roi.reshape(B, T, N, KH, KW, roi.shape[-1])
+
+
+def trunk_from_cfg(cfg, backbone: nn.Module, images: torch.Tensor,
+                   boxes: torch.Tensor, train: bool) -> torch.Tensor:
+    """``trunk_forward`` with the knobs of ``cfg`` (the one place they map,
+    as din_tpu/models/trunk.py:330-349): the chunk of ``auto_chunk``, the
+    compute dtype, and BatchNorm in training mode exactly when ``train and
+    not cfg.set_bn_eval``."""
+    B, T, H, W, _ = images.shape
+    chunk = auto_chunk(B * T, H, W, cfg.frame_chunk, cfg.train_backbone)
+    return trunk_forward(backbone, images, boxes, out_size=cfg.out_size,
+                         crop_size=cfg.crop_size,
+                         compute_dtype=getattr(torch, cfg.compute_dtype),
+                         chunk=chunk, train_backbone=cfg.train_backbone,
+                         bn_train=train and not cfg.set_bn_eval)
 
 
 def embed_actors(roi: torch.Tensor, fc_emb: nn.Linear,

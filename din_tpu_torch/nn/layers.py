@@ -3,8 +3,10 @@ din_tpu/nn/layers.py).
 
 ``torch_conv`` is ``nn.Conv2d`` itself, ``TorchLayerNorm(ndims)`` is
 ``nn.LayerNorm`` over the trailing dims, ``max_pool_torch(x, 2, 2)`` is
-``MaxPool2x2``, which goes through kernels K2 and K2b, and flax
-``nn.Dropout`` is ``SeededDropout``.  The initialisers
+``MaxPool2x2``, which goes through kernels K2 and K2b (the 3x3/s2 pool of
+ResNet is ``F.max_pool2d``: no Pallas kernel computes it), the flax
+``TorchBatchNorm`` is the ``nn.BatchNorm2d`` subclass of the same name, and
+flax ``nn.Dropout`` is ``SeededDropout``.  The initialisers
 reproduce the JAX package's from a ``torch.Generator``: flax's default
 conv init (lecun normal, truncated), the reference's kaiming-normal Linear
 init, zero biases.
@@ -53,6 +55,49 @@ class MaxPool2x2(nn.Module):
         # NCHW channels_last is NHWC in memory: the permute is free
         y = max_pool_2x2(x.permute(0, 2, 3, 1).contiguous())
         return y.permute(0, 3, 1, 2)
+
+
+class TorchBatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with din_tpu's arithmetic (din_tpu/nn/layers.py:129-176),
+    not cuDNN's: statistics in float32 for a bf16 or f32 input (float64
+    stays float64), the variance as ``max(E[x^2] - E[x]^2, 0)`` (cuDNN's
+    Welford sums differ by a few f32 ulps, enough to flip a later ReLU),
+    the running statistics
+    updated with momentum 0.1 and the unbiased ``n/(n-1)`` variance, and
+    ``y = x*mul + (bias - mean*mul)`` in float32, cast back to the input's
+    dtype.  Training mode (``self.training``) normalises with the batch's
+    statistics and folds them into the running ones; eval mode uses the
+    running ones.  The keys are torch's (``weight``, ``bias``,
+    ``running_mean``, ``running_var``, ``num_batches_tracked``), so
+    torchvision and reference files load by name; ``num_batches_tracked``
+    counts the training calls, as torch's does (din_tpu keeps no count and
+    exports 0)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N,C,H,W] (any memory format) -> the same shape and dtype."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            dims = (0, 2, 3)
+            mean = xf.mean(dim=dims)
+            var = (xf.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                n = x.numel() // x.shape[1]
+                unbiased = var * (n / max(n - 1, 1))
+                m = 1.0 - self.momentum        # flax's momentum, 0.9
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * unbiased)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * mul
+        y = xf * mul[:, None, None] + shift[:, None, None]
+        return y.to(x.dtype)
 
 
 class SeededDropout(nn.Module):

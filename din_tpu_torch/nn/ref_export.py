@@ -2,15 +2,20 @@
 Adam state (numpy only).
 
 The port's own copy of what it needs from din_tpu/nn/ref_export.py
-``export_model_state`` (lines 221-305), for the models the port has: conv
-kernels HWIO -> OIHW, Dense kernels [I,O] -> [O,I], ``point_conv`` to a 1x1
-conv and the DIN convs as ``_pointconv_inv`` / ``_din_inv`` do
-(lines 126-153), ``fc_emb_1`` permuted from the JAX trunk's position-major
-RoI flatten to the reference's channel-major one (``_fc_emb_inv``,
-lines 212-218).  Keys are the reference's, which are the port's module
-names: ``backbone.features.N``, ``fc_emb_1``, ``nl_emb_1``, ``point_conv``,
-``point_ln``, ``DPI.DIMlist.{i}.*``, ``dpi_nl``, ``fc_activities``; for a
-stage-1 Basenet ``backbone.features.N``, ``fc_emb``, ``fc_actions``,
+``export_backbone_state`` and ``export_model_state`` (lines 35-95,
+221-305), for the models the port has: conv kernels HWIO -> OIHW, Dense
+kernels [I,O] -> [O,I], BatchNorm ``scale``/``bias`` and ``batch_stats``
+``mean``/``var`` -> ``weight``/``bias``/``running_mean``/``running_var``
+with ``num_batches_tracked = 0``, ``point_conv`` to a 1x1 conv and the DIN
+convs as ``_pointconv_inv`` / ``_din_inv`` do (lines 126-153), ``fc_emb_1``
+permuted from the JAX trunk's position-major RoI flatten to the reference's
+channel-major one (``_fc_emb_inv``, lines 212-218).  Keys are the
+reference's, which are the port's module names: ``backbone.features.N``
+(ResNet-18: ``features.0``/``features.1`` for conv1/bn1 and
+``features.4``-``features.7`` for layer1-4, ``RESNET_SEQ``), ``fc_emb_1``,
+``nl_emb_1``, ``point_conv``, ``point_ln``, ``DPI.DIMlist.{i}.*`` (the
+collective model's one field: ``DPI.*``), ``dpi_nl``, ``fc_activities``;
+for a stage-1 Basenet ``backbone.*``, ``fc_emb``, ``fc_actions``,
 ``fc_activities``.
 
 ``jax_train_state_to_torch`` carries a JAX training run into the port:
@@ -22,10 +27,12 @@ weights (both apply the same bias correction); it is the reverse of
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from din_tpu_torch.nn.backbones import RESNET_SEQ
 
 
 def _np(x) -> np.ndarray:
@@ -63,27 +70,74 @@ def _din(d, prefix, out):
                 _conv(v, f"{prefix}{name}.{k[len(name) + 1:]}", out)
 
 
-def _backbone_key(name: str) -> str:
-    """flax ``features_N`` -> torch ``features.N`` (VGG)."""
-    head, _, idx = name.rpartition("_")
-    if not (head and idx.isdigit()):
-        raise ValueError(f"unexpected backbone module name {name!r}")
-    return f"{head}.{idx}"
+def _module_key(path, backbone: str) -> str:
+    """flax module names -> torch key prefix (ref_export.py:42-64): a
+    numeric part joins its parent with '.' (``features_3`` ->
+    ``features.3``, ``layer1_0`` -> ``layer1.0``, ``downsample_1`` ->
+    ``downsample.1``); ResNet's stages sit in the reference's Sequential."""
+    segs = []
+    for comp in path:
+        parts = comp.split("_")
+        seg = parts[0]
+        for p in parts[1:]:
+            seg += ("." + p) if p.isdigit() else ("_" + p)
+        segs.append(seg)
+    key = ".".join(segs)
+    if backbone == "res18":
+        head, _, rest = key.partition(".")
+        if head in RESNET_SEQ:
+            key = RESNET_SEQ[head] + ("." + rest if rest else "")
+    return key
 
 
-def jax_params_to_state_dict(params: Dict[str, Any], cfg
+def export_backbone_state(params: Dict[str, Any],
+                          batch_stats: Optional[Dict[str, Any]],
+                          backbone: str) -> Dict[str, np.ndarray]:
+    """A JAX backbone's params and BatchNorm statistics -> the port's
+    ``backbone.state_dict()`` (ref_export.py:67-95)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(tree, path):
+        for k, v in sorted(tree.items()):
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
+            key = _module_key(path, backbone)
+            v = _np(v)
+            if k == "kernel":
+                out[f"{key}.weight"] = v.transpose(3, 2, 0, 1)
+            elif k == "scale":
+                out[f"{key}.weight"] = v
+            elif k in ("mean", "var"):
+                out[f"{key}.running_{k}"] = v
+                out[f"{key}.num_batches_tracked"] = np.asarray(0, np.int64)
+            else:
+                out[f"{key}.{k}"] = v
+
+    walk(params, ())
+    walk(batch_stats or {}, ())
+    return out
+
+
+def jax_params_to_state_dict(params: Dict[str, Any], cfg,
+                             batch_stats: Optional[Dict[str, Any]] = None
                              ) -> Dict[str, np.ndarray]:
-    """JAX ``variables['params']`` of a DynamicVolleyball or, at
-    ``cfg.training_stage == 1``, a BasenetVolleyball (nested dicts of arrays)
-    -> the port's ``state_dict`` as numpy arrays.  The stage-1 embedding
-    ``embed/fc_emb_1`` is the Basenet's ``fc_emb`` (ref_export.py:313-334)."""
+    """JAX ``variables['params']`` (and, for a backbone with BatchNorm,
+    ``variables['batch_stats']``) of a DynamicVolleyball or
+    DynamicCollective or, at ``cfg.training_stage == 1``, a Basenet (nested
+    dicts of arrays) -> the port's ``state_dict`` as numpy arrays.  The
+    stage-1 embedding ``embed/fc_emb_1`` is the Basenet's ``fc_emb``
+    (ref_export.py:313-334)."""
     K = cfg.crop_size[0]
     D = cfg.emb_features
     out: Dict[str, np.ndarray] = {}
 
-    backbone = params["trunk"]["frames_scan"]["backbone"]
-    for name in sorted(backbone):
-        _conv(backbone[name], f"backbone.{_backbone_key(name)}", out)
+    stats = (batch_stats or {}).get("trunk", {}).get("frames_scan", {}) \
+        .get("backbone")
+    for k, v in export_backbone_state(params["trunk"]["frames_scan"]
+                                      ["backbone"], stats,
+                                      cfg.backbone).items():
+        out["backbone." + k] = v
 
     fc = params["embed"]["fc_emb_1"]
     fc_key = "fc_emb" if cfg.training_stage == 1 else "fc_emb_1"
@@ -95,8 +149,11 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg
     if "nl_emb_1" in params["embed"]:
         _ln(params["embed"]["nl_emb_1"], "nl_emb_1", out)
 
-    for k, v in params.get("DPI", {}).items():
-        _din(v, f"DPI.DIMlist.{k.split('_')[1]}.", out)
+    if "collective" in cfg.inference_module_name and "DPI" in params:
+        _din(params["DPI"]["DIM_0"], "DPI.", out)     # Dynamic_collective
+    else:
+        for k, v in params.get("DPI", {}).items():
+            _din(v, f"DPI.DIMlist.{k.split('_')[1]}.", out)
     for tln in ("dpi_nl", "point_ln"):
         if tln in params:
             _ln(params[tln]["ln"], tln, out)
@@ -133,17 +190,20 @@ def _fill_masked(tree, like):
 
 def jax_train_state_to_torch(params: Dict[str, Any], opt_state, cfg,
                              model: torch.nn.Module,
-                             optimizer: torch.optim.Optimizer) -> None:
-    """Loads JAX ``params`` into ``model`` and the Adam state of
-    ``opt_state`` (an optax ``make_optimizer`` state) into ``optimizer``, in
-    place: moments, step count and the injected learning rate.  The model's
-    trainable parameters must be the optimizer's."""
+                             optimizer: torch.optim.Optimizer,
+                             batch_stats: Optional[Dict[str, Any]] = None
+                             ) -> None:
+    """Loads JAX ``params`` (and ``batch_stats``) into ``model`` and the
+    Adam state of ``opt_state`` (an optax ``make_optimizer`` state) into
+    ``optimizer``, in place: moments, step count and the injected learning
+    rate.  The model's trainable parameters must be the optimizer's."""
     adam = _find_state(opt_state, ("mu", "nu", "count"))
     if adam is None:
         raise ValueError("no scale_by_adam state found in opt_state")
     model.load_state_dict(
         {k: torch.from_numpy(np.array(v))
-         for k, v in jax_params_to_state_dict(params, cfg).items()},
+         for k, v in jax_params_to_state_dict(params, cfg,
+                                              batch_stats).items()},
         strict=True)
     mu = jax_params_to_state_dict(_fill_masked(adam.mu, params), cfg)
     nu = jax_params_to_state_dict(_fill_masked(adam.nu, params), cfg)

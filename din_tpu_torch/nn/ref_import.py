@@ -4,7 +4,10 @@ weights, into the port.
 The port's own copy of din_tpu/nn/ref_import.py ``load_reference_checkpoint``
 (lines 395-432) and ``load_reference_optimizer`` (lines 306-368), and of
 din_tpu/nn/torch_port.py ``torch_file_to_numpy`` / ``convert_backbone_state``
-(lines 35-111), for the models the port has.  The port's modules carry the
+(lines 35-111), for the models the port has.  A reference
+``Dynamic_collective`` file holds its one DIN field as ``DPI.*``, which is
+the port's ``DynamicCollective.DPI``; BatchNorm buffers load with the
+parameters.  The port's modules carry the
 reference's names and layouts, so what the JAX package converts (NHWC
 kernels, the position-major RoI flatten) here loads by name as it is.
 
@@ -38,14 +41,13 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from din_tpu_torch.nn.backbones import BACKBONE_ITEM, RESNET_SEQ
+
 _BUFFER_SUFFIXES = ("running_mean", "running_var", "num_batches_tracked")
 _COMPONENTS = (("backbone_state_dict", "backbone."),
                ("fc_emb_state_dict", "fc_emb_1."),
                ("fc_actions_state_dict", "fc_actions."),
                ("fc_activities_state_dict", "fc_activities."))
-# the ROADMAP.md item that brings each backbone the port lacks
-_BACKBONE_ITEM = {"res18": 5, "inv3": 6, "vgg19": 7, "res50": 7,
-                  "alexnet": 7}
 
 
 def _read(path_or_state):
@@ -177,18 +179,27 @@ def load_reference_optimizer(model: torch.nn.Module,
 def load_pretrained_backbone(model: torch.nn.Module, path: str,
                              backbone: str) -> None:
     """Loads a torchvision-layout ``state_dict`` file (bare, or under
-    ``'state_dict'``) into ``model.backbone`` in place: ``features.*``
-    strictly into ``backbone.features``; ``classifier.*`` is not used.
-    Only VGG-16 is ported; another backbone raises."""
-    if backbone != "vgg16":
-        item = _BACKBONE_ITEM.get(backbone)
+    ``'state_dict'``) into ``model.backbone`` in place, strictly: VGG-16's
+    ``features.*`` into ``backbone.features`` (``classifier.*`` unused);
+    ResNet-18's ``conv1``, ``bn1`` and ``layer1``-``layer4`` into
+    ``features.0``, ``.1`` and ``.4``-``.7``, BatchNorm statistics
+    included (``fc.*`` unused).  Another backbone raises."""
+    if backbone not in ("vgg16", "res18"):
+        item = BACKBONE_ITEM.get(backbone)
         raise NotImplementedError(
-            f"pretrained {backbone!r} weights: only vgg16 is ported"
+            f"pretrained {backbone!r} weights: vgg16 and res18 are ported"
             + (f"; {backbone} comes with ROADMAP.md §1 item {item}"
                if item else ""))
     state = _read(path)
     if "state_dict" in state:
         state = state["state_dict"]
+    if backbone == "res18":        # din_tpu/nn/torch_port.py:46-61
+        renamed = {}
+        for k, v in state.items():
+            head, _, rest = k.partition(".")
+            if head in RESNET_SEQ:
+                renamed[f"{RESNET_SEQ[head]}.{rest}"] = v
+        state = renamed
     model.backbone.features.load_state_dict(
         {k[len("features."):]: v for k, v in state.items()
          if k.startswith("features.")}, strict=True)

@@ -12,6 +12,9 @@ Stage 1: the Basenet's component file (base_model.py:46-54 ``savemodel``),
 ``save_reference_checkpoint(fmt='stage1')``; ``load_backbone_stage2``
 grafts its backbone and ``fc_emb`` (as ``fc_emb_1``) into a stage-2 model
 (infer_model.py:122-126 ``loadmodel``; din_tpu/train/checkpoint.py:118-131).
+A backbone's ``state_dict`` holds its BatchNorm buffers (``running_mean``,
+``running_var``, ``num_batches_tracked``), so the component file and the
+graft carry them, as din_tpu's carry ``batch_stats``.
 Reading the JAX package's msgpack ``.ckpt`` files is not ported.
 """
 
@@ -46,17 +49,18 @@ def load_state(path: str, model: torch.nn.Module,
 
 
 def save_stage1_components(path: str, model: torch.nn.Module) -> None:
-    """The stage-1 component file of a BasenetVolleyball."""
+    """The stage-1 component file of a Basenet (either dataset), the
+    backbone's BatchNorm buffers included."""
     _save({f"{name}_state_dict": getattr(model, name).state_dict()
            for name in ("backbone", "fc_emb", "fc_actions", "fc_activities")},
           path)
 
 
 def load_backbone_stage2(model: torch.nn.Module, stage1_path: str) -> None:
-    """Grafts ``backbone.*`` and ``fc_emb`` -> ``fc_emb_1`` of a stage-1
-    component file into a stage-2 model in place (strict per component);
-    the rest, ``nl_emb_1`` included, keeps its init.  A missing file
-    raises."""
+    """Grafts ``backbone.*`` (parameters and BatchNorm buffers) and
+    ``fc_emb`` -> ``fc_emb_1`` of a stage-1 component file into a stage-2
+    model in place (strict per component); the rest, ``nl_emb_1`` included,
+    keeps its init.  A missing file raises."""
     comp = torch.load(stage1_path, map_location="cpu", weights_only=True)
     model.backbone.load_state_dict(comp["backbone_state_dict"], strict=True)
     model.fc_emb_1.load_state_dict(comp["fc_emb_state_dict"], strict=True)

@@ -5,29 +5,33 @@ engine.py: ``make_train_step`` :75-119, ``make_eval_step``, ``_epoch_info``
 :530-550 and its epoch loop :555-645), on one device.
 
 The data come from ``data/datasets.py`` ``return_dataset`` (synthetic clips
-or a Volleyball tree on disk, or its packed store), batched by
-``BatchLoader`` on ``cfg.num_workers`` decode threads and put on the device
-``cfg.prefetch_depth`` batches ahead of the step by ``prefetch_to_device``.
+or a Volleyball or Collective Activity tree on disk, or its packed store),
+batched by ``BatchLoader`` on ``cfg.num_workers`` decode threads and put on
+the device ``cfg.prefetch_depth`` batches ahead of the step by
+``prefetch_to_device``.
 
-A step is forward, loss (``compute_losses``; stage 1 takes per-frame labels,
-stage 2 frame 0's), backward and one Adam update.  Each epoch sets the lr of
-the plan, pins the loader's shuffle epoch, takes its steps (at most
-``max_steps_per_epoch``), reports the epoch, and every
+A step is forward (``model(images, boxes, bboxes_num)``: the collective
+models mask padded actors with the count, as din_tpu's ``apply`` passes
+``bboxes_num``, engine.py:95-103), loss (``compute_losses``; stage 1 takes
+per-frame labels, stage 2 frame 0's), backward and one Adam update; a
+backbone with BatchNorm updates its running statistics in the forward. Each
+epoch sets the lr of the plan, pins the loader's shuffle epoch, takes its
+steps (at most ``max_steps_per_epoch``), reports the epoch, and every
 ``test_interval_epoch`` epochs runs an eval pass and tracks the best
-accuracy.  Stage 2 then writes one checkpoint
+accuracy. Stage 2 then writes one checkpoint
 ``stage2_epoch{E}_{acc:.2f}%.pth``; stage 1 writes its component file
 ``stage1_epoch{E}_{acc:.2f}%.pth`` when the accuracy is the best so far or
-ties it.  ``cfg.test_before_train`` adds an eval pass logged at epoch 0
+ties it. ``cfg.test_before_train`` adds an eval pass logged at epoch 0
 before the first epoch; ``cfg.eval_only`` runs one eval pass on the loaded
 weights, logged at the start epoch - 1, returns its info and neither trains
-nor writes a file.  Stage 2 starts from a stage-1 file
+nor writes a file. Stage 2 starts from a stage-1 file
 (``cfg.load_backbone_stage2``, ``cfg.stage1_model_path``: backbone and
 ``fc_emb`` grafted) or else resumes a stage-2 checkpoint
-(``cfg.stage2model``: params, Adam state, epoch); stage 1 may start from a
-torchvision VGG-16 file
-(``cfg.pretrained_backbone_path``); either may start from a reference
-``.pth`` (``cfg.ref_checkpoint_path``) and adopt its Adam state
-(``cfg.ref_resume_optimizer``).
+(``cfg.stage2model``: params, Adam state, epoch), BatchNorm statistics
+included in both; stage 1 may start from a torchvision VGG-16 or ResNet-18
+file (``cfg.pretrained_backbone_path``, BatchNorm statistics included);
+either may start from a reference ``.pth`` (``cfg.ref_checkpoint_path``) and
+adopt its Adam state (``cfg.ref_resume_optimizer``).
 
 Not ported: preemption and resume of a partial epoch, gradient
 accumulation, the profiler hook, the MAD diagnostic (ROADMAP.md).
@@ -62,7 +66,7 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     """One update on a batch already on the model's device; returns the
     detached metrics (still on the device: reading them waits for it)."""
     model.train()
-    out = model(batch["images"], batch["boxes"])
+    out = model(batch["images"], batch["boxes"], batch.get("bboxes_num"))
     metrics = compute_losses(out, batch, cfg, cfg.training_stage == 2)
     optimizer.zero_grad(set_to_none=True)
     metrics["loss"].backward()
@@ -74,7 +78,7 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
               cfg) -> Dict[str, torch.Tensor]:
     model.eval()
-    out = model(batch["images"], batch["boxes"])
+    out = model(batch["images"], batch["boxes"], batch.get("bboxes_num"))
     return compute_losses(out, batch, cfg, cfg.training_stage == 2)
 
 

@@ -393,7 +393,8 @@ def test_packed_store_counts_misses_and_rejects_bad_files(tree, tmp_path):
 def test_return_dataset_from_tree_and_pack(tree, tmp_path):
     """``return_dataset`` builds the Volleyball split from the tree, and
     from its pack (precedence pack > LRU > none) with equal items; the
-    synthetic fixtures stay; collective names its ROADMAP item."""
+    synthetic fixtures stay; a collective config finds no Collective
+    Activity tree there (tests/test_torch_collective_data.py reads one)."""
     root, _ = tree
     cfg = PRESETS["volleyball_stage2_dynamic"]().replace(
         data_path=root, train_seqs=[0, 1], test_seqs=[2], image_size=(H, W),
@@ -419,7 +420,7 @@ def test_return_dataset_from_tree_and_pack(tree, tmp_path):
     assert s1.is_finetune and (s1.num_before, s1.num_after) == (5, 4)
     syn_train, syn_val = return_dataset(cfg.replace(data_path="synthetic"))
     assert (len(syn_train), len(syn_val)) == (64, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(FileNotFoundError, match="seq01"):
         return_dataset(Config("collective").replace(data_path=root))
 
 

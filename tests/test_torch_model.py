@@ -130,7 +130,7 @@ def test_vgg16_backbone_matches_jax_with_odd_pool5():
     order only)."""
     from din_tpu.nn.backbones import VGG16Backbone as JaxVGG
     from din_tpu_torch.nn.backbones import VGG16Backbone
-    from din_tpu_torch.nn.ref_export import _backbone_key, _conv
+    from din_tpu_torch.nn.ref_export import export_backbone_state
 
     rng = np.random.RandomState(7)
     x = rng.uniform(-1, 1, (2, 48, 80, 3)).astype(np.float32)
@@ -138,9 +138,7 @@ def test_vgg16_backbone_matches_jax_with_odd_pool5():
     variables = jax.jit(jm.init)(jax.random.PRNGKey(0), x)
     params = _perturb(jax.device_get(variables["params"]), rng)
     ref = np.asarray(jm.apply({"params": params}, x)[0])
-    state = {}
-    for name, p in params.items():
-        _conv(p, _backbone_key(name), state)
+    state = export_backbone_state(params, None, "vgg16")
     model = VGG16Backbone(torch.Generator().manual_seed(0))
     _load(model, state)
     with torch.no_grad():

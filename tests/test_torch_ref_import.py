@@ -347,7 +347,7 @@ def test_pretrained_vgg16_file_gives_jax_backbone_output(tmp_path, layout):
     assert got.shape == ref.shape == (2, 2, 3, 512)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_pretrained_backbone(model, path, "res18")
+        load_pretrained_backbone(model, path, "inv3")
 
 
 def test_run_cli_with_the_three_new_flags(case, tmp_path, monkeypatch):
