@@ -120,7 +120,29 @@ Phases, each timed, any failure exits non-zero:
    and its pack: stage 2 from each (batches on the card bit-equal to the
    loader's, the pack's first batch and step-1 loss equal the JPEGs'), and
    ``--eval-only`` of the JPEG run's checkpoint; launch counts of every run
-   against ``derived_counts`` (K2, K2b and K3 0).
+   against ``derived_counts`` (K2, K2b and K3 0);
+10. serving phase 4's trained flagship checkpoint: the stage-2 ``.pth``
+   ``train_net`` wrote and its reference-ordered copy, each through
+   ``Predictor.from_checkpoint(pad_to=2)``, answer a 1-clip and a 3-clip
+   request bit-equal to the trained model in memory; a copy without one
+   tensor raises; ``serve_http`` on 127.0.0.1 in a thread answers
+   ``/healthz``, the 1- and 3-clip ``/predict`` (JSON posteriors equal the
+   Predictor's after the float32 round-trip) and a malformed body (400);
+   six 1-clip HTTP requests and six direct calls in turns (host clock);
+   ``inspect_ckpt`` counts the model's parameters; launch counts of each
+   path against ``derived_counts``;
+11. the DIN variants at full width: ``volleyball_stage2_dynamic_
+   hierarchical``, ``_multi`` and ``_tce``, each through ``train_net``
+   grafted from phase 4's stage-1 file (3 steps at batch 2, an eval pass, a
+   checkpoint), ms per step and peak memory on one batch, a 1- and a 3-clip
+   request at ``pad_to=2`` from that checkpoint, and the card against the
+   CPU at phase 6's geometry (posteriors within 1e-4 with TF32 off and with
+   the default flags; 3 training steps with TF32 off, dropout 0, the fixed
+   rate dropouts of the hierarchical head and TCE at 0 as the two devices'
+   generators draw different masks: losses rtol 1e-4, parameters within
+   ``check_params``'s bounds with ``ulps=0``; along the card's own
+   trajectory the share beyond 2e-5 is reported, not bounded, as stage
+   1's); launch counts of every run against ``derived_counts``.
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -1365,21 +1387,401 @@ def collective_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
     return dict(counts=counts, numbers=numbers)
 
 
+def _zero_fixed_dropouts(model: torch.nn.Module) -> int:
+    """Sets the rate of every dropout that ``train_dropout_prob`` does not
+    set (the hierarchical head's 0.5, TCE's 0.1) to 0: the card's and the
+    CPU's generators draw different masks, so a card-against-CPU step
+    compares the same function only without them.  Returns how many."""
+    from din_tpu_torch.nn.layers import SeededDropout
+
+    fixed = [m for name, m in model.named_modules()
+             if isinstance(m, SeededDropout) and name != "dropout_global"]
+    for m in fixed:
+        m.p = 0.0
+    return len(fixed)
+
+
+def checkpoint_serving(dev, tmp: Path, ckpt: str, ref_path: str, smi: str,
+                       reset_counts, read_counts, shrink=lambda c: c) -> dict:
+    """Phase 10: serving phase 4's trained stage-2 file (see the module
+    docstring).  ``shrink`` sizes the config down for a rehearsal on the
+    CPU, where no kernel launches and the counts are not checked.  Returns
+    the launch counts of each path and the measured numbers."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from din_tpu_torch.data.synthetic import make_synthetic_batch
+    from din_tpu_torch.experiments.predict import Predictor
+    from din_tpu_torch.experiments.presets import PRESETS
+    from din_tpu_torch.experiments.serve_http import make_server
+    from din_tpu_torch.models.registry import build_model
+    from din_tpu_torch.train import inspect_ckpt
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.time()
+    cfg = shrink(PRESETS["volleyball_stage2_dynamic"]())
+    counts, numbers = {}, {}
+    batch = make_synthetic_batch(cfg, 3, rng=np.random.RandomState(SEED + 31))
+    requests = [(batch["images"][:1], batch["boxes"][:1]),
+                (batch["images"], batch["boxes"])]
+    calls = sum(-(-len(im) // 2) for im, _ in requests)
+    expect, how = derived_counts(cfg, 0, cfg.num_frames, calls,
+                                 cfg.num_frames, eval_batch=2)
+
+    def check_counts(name, got):
+        log(f"[ckpt] {name}: launches {got}, expected {expect} ({how}; "
+            f"requests of 1 and 3 clips at pad_to=2)")
+        require(not on_card or (got == expect and expect["roi_align"] > 0),
+                f"{name}: launch counts are off")
+        counts[name] = got
+
+    # the trained model in memory: phase 4's state loaded by hand
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    model = build_model(cfg, device=dev)
+    model.load_state_dict(saved["state_dict"], strict=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    want = [Predictor(cfg, model, pad_to=2, device=dev)(*r)["activities"]
+            for r in requests]
+    del model
+    predictor = None
+    for name, path in (("ckpt_serve_ref", ref_path), ("ckpt_serve", ckpt)):
+        tt = time.time()
+        predictor = Predictor.from_checkpoint(cfg, path, pad_to=2,
+                                              device=dev)
+        build_s = time.time() - tt
+        reset_counts()
+        got = [predictor(*r)["activities"] for r in requests]
+        sync()
+        check_counts(name, read_counts())
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        require(same, f"{name}: posteriors differ from the trained model's "
+                f"by {max(np.abs(g - w).max() for g, w in zip(got, want))}")
+        log(f"[ckpt] Predictor.from_checkpoint({Path(path).name}) built and "
+            f"loaded in {build_s:.2f} s; posteriors of the 1- and 3-clip "
+            f"requests bit-equal to the trained model's in memory")
+
+    missing = dict(saved["state_dict"])
+    dropped = next(k for k in missing if k.startswith("DPI."))
+    del missing[dropped]
+    bad = tmp / "missing_one_tensor.pth"
+    torch.save({"epoch": saved["epoch"], "state_dict": missing,
+                "optimizer": {}}, bad)
+    try:
+        Predictor.from_checkpoint(cfg, str(bad), pad_to=2, device=dev)
+        raised = ""
+    except RuntimeError as e:
+        raised = " ".join(str(e).split())
+    require(f'Missing key(s) in state_dict: "{dropped}"' in raised,
+            f"a file without {dropped} loaded")
+    log(f"[ckpt] a file without {dropped} raises: {raised[:160]}")
+    del missing, saved
+
+    # the HTTP front end around the port file's predictor
+    info = {"model": cfg.inference_module_name, "pad_to": 2}
+    server = make_server(predictor, "127.0.0.1", 0, info)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(body: bytes):
+        try:
+            with urllib.request.urlopen(url + "/predict", data=body,
+                                        timeout=300) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def npz(images, boxes) -> bytes:
+        buf = io.BytesIO()
+        np.savez(buf, images=images, boxes=boxes)
+        return buf.getvalue()
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = (r.status, json.loads(r.read()))
+        require(health == (200, {"ok": True, **info}), f"healthz {health}")
+        bodies = [npz(*r) for r in requests]
+        reset_counts()
+        replies = [post(b) for b in bodies]
+        sync()
+        check_counts("ckpt_http", read_counts())
+        for (code, reply), w in zip(replies, want):
+            got = np.asarray(reply.get("activities"), np.float32)
+            require(code == 200 and np.array_equal(got, w),
+                    f"HTTP reply {code} differs from the Predictor's")
+        code, reply = post(b"this is not an npz archive")
+        require(code == 400 and reply.get("error"), f"malformed body: {code}")
+        log(f"[ckpt] serve_http on {url}: /healthz {health[1]}; 1- and "
+            f"3-clip /predict JSON posteriors equal the Predictor's after "
+            f"the float32 round-trip; a malformed body gets {code} "
+            f"({reply['error'][:60]})")
+        direct, http = [], []
+        for _ in range(6):
+            http += time_host(lambda: post(bodies[0]), 1) if on_card else [0]
+            direct += time_host(lambda: predictor(*requests[0]), 1) \
+                if on_card else [0]
+        numbers.update(http_ms=float(np.median(http)),
+                       direct_ms=float(np.median(direct)))
+        log(f"[ckpt] 1-clip requests, 6 each in turns (host clock, "
+            f"synchronized): HTTP median {numbers['http_ms']:.2f} ms (min "
+            f"{min(http):.2f}, max {max(http):.2f}), direct Predictor median "
+            f"{numbers['direct_ms']:.2f} ms (min {min(direct):.2f}, max "
+            f"{max(direct):.2f}); HTTP overhead "
+            f"{numbers['http_ms'] - numbers['direct_ms']:.2f} ms [{smi}]")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    require(not thread.is_alive(), "the HTTP server thread did not stop")
+
+    lines = []
+    described = inspect_ckpt.describe(ckpt, out=lines.append)
+    require(described["params"] == n_params
+            and described["layout"] == "stage-2 / reference full-model",
+            f"inspect_ckpt counts {described['params']} parameters, the "
+            f"model has {n_params}")
+    log(f"[ckpt] inspect_ckpt: {described['layout']}, epoch "
+        f"{described['epoch']}, {described['params']:,} parameters (the "
+        f"model's), {len(described['modules'])} modules; "
+        + "; ".join(line.strip() for line in lines[3:6]))
+    log(f"[ckpt] done in {time.time() - t0:.2f} s")
+    return dict(counts=counts, numbers=numbers)
+
+
+def tce_times(tce: torch.nn.Module, c, smi: str) -> dict:
+    """CUDA-event times of TCE's encoder alone at a training step's shapes
+    (B*T = 20 frames of 12 actors of 1024 features over the [22,40,512]
+    map plus its sine encoding), forward and forward with backward, beside
+    the floating-point operations it must do in IEEE f32: per head the
+    1x1 conv of the map to 128 features, the actor embedding, the
+    attention logits and the weighted sum over the 880 cells, the FFN."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    BT, N = c.batch_size * c.num_frames, c.num_boxes
+    OH, OW = c.out_size
+    feats = torch.randn((BT, N, 1024), generator=gen, device=dev,
+                        requires_grad=True)
+    ctx = torch.randn((BT, OH, OW, c.emb_features), generator=gen,
+                      device=dev, requires_grad=True)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    tce.train()
+    fwd = time_cuda(lambda: tce(feats, ctx), 20, flush)
+    both = time_cuda(lambda: tce(feats, ctx).sum().backward(), 20, flush)
+    P, nfc, heads = OH * OW, 128, len(tce.CET)
+    flops = heads * 2 * (BT * P * c.emb_features * nfc + BT * N * 1024 * nfc
+                         + 2 * BT * N * P * nfc + 2 * BT * N * nfc * nfc)
+    attn = heads * 2 * 2 * BT * N * P * nfc
+    log(f"[variants] tce: MultiHeadTCE alone, {BT} frames x {N} actors over "
+        f"{P} map cells, {heads} heads of {nfc}: forward {fwd:.4f} ms, "
+        f"forward and backward {both:.4f} ms (CUDA events, train mode); "
+        f"{flops / 1e9:.2f} GFLOP forward, of which the attention over the "
+        f"cells {attn / 1e9:.3f}; bound {flops / F32_FLOPS_PER_S * 1e3:.4f} "
+        f"ms at the f32 rate [{smi}]")
+    return dict(tce_fwd_ms=fwd, tce_fwd_bwd_ms=both, tce_gflop=flops / 1e9)
+
+
+VARIANTS = ("volleyball_stage2_dynamic_hierarchical",
+            "volleyball_stage2_dynamic_multi",
+            "volleyball_stage2_dynamic_tce")
+
+
+def variants_path(dev, tmp: Path, s1_path: str, smi: str, reset_counts,
+                  read_counts, shrink=lambda c: c) -> dict:
+    """Phase 11: the three DIN variants at full width (see the module
+    docstring).  ``shrink`` sizes every config down for a rehearsal on the
+    CPU, where no kernel launches and neither the counts nor the card
+    against the CPU are checked.  Returns the launch counts of each path
+    and the measured numbers."""
+    from din_tpu_torch.data.datasets import return_dataset
+    from din_tpu_torch.data.loader import to_device
+    from din_tpu_torch.data.synthetic import make_synthetic_batch
+    from din_tpu_torch.experiments.predict import Predictor
+    from din_tpu_torch.experiments.run import config_from_args
+    from din_tpu_torch.models.registry import build_model
+    from din_tpu_torch.train import engine
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    counts, numbers = {}, {}
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0
+
+    def reset_peak():
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def check_counts(name, got, expect, how):
+        """A training path launches all five kernels, a serving path the
+        forward ones (K1, K2, K3)."""
+        log(f"[variants] {name}: launches {got}, expected {expect} ({how})")
+        must = [k for k in expect if not name.endswith("_serve")
+                or not k.endswith("_bwd")]
+        require(not on_card or (got == expect
+                                and min(expect[k] for k in must) > 0),
+                f"{name}: launch counts are off")
+        counts[name] = got
+
+    for preset in VARIANTS:
+        t0 = time.time()
+        short = preset.rsplit("_", 1)[1]
+        c, _ = config_from_args([
+            "--preset", preset, "--data-path", "synthetic", "--max-epoch",
+            "1", "--result-root", str(tmp), "--exp-name", short,
+            "--stage1-model-path", s1_path])
+        c = shrink(c)
+        _, val = return_dataset(c)
+        reset_peak()
+        reset_counts()
+        tt = time.time()
+        best = engine.train_net(c, max_steps_per_epoch=3, device=dev)
+        sync()
+        train_s = time.time() - tt
+        expect, how = derived_counts(c, 3, c.num_frames,
+                                     -(-len(val) // c.test_batch_size),
+                                     c.num_frames)
+        log(f"[variants] {short}: train_net from phase 4's stage-1 file, 3 "
+            f"steps at batch {c.batch_size}, an eval of {len(val)} clips, a "
+            f"checkpoint, in {train_s:.2f} s; peak device memory "
+            f"{peak_gib():.2f} GiB")
+        check_counts(f"{short}_train", read_counts(), expect, how)
+        losses = [float(v) for v in re.findall(
+            r"Loss: ([-+0-9.eEnaif]+)",
+            (Path(c.result_path) / "log.txt").read_text())]
+        ckpt = best.get("checkpoint")
+        require(len(losses) == 2 and all(map(math.isfinite, losses))
+                and ckpt is not None and Path(ckpt).exists(),
+                f"{short}: losses {losses}, checkpoint {ckpt}")
+
+        model, optimizer, _ = engine.setup_training(c, dev)
+        sbatch = to_device(make_synthetic_batch(
+            c, c.batch_size, rng=np.random.RandomState(SEED + 41)), dev)
+        reset_peak()
+        ms = time_host(lambda: engine.train_step(model, optimizer, sbatch, c),
+                       6) if on_card else [0.0] * 6
+        warm = sum(ms[1:]) / len(ms[1:])
+        numbers[f"{short}_step_ms"] = warm
+        numbers[f"{short}_peak_gib"] = peak_gib()
+        log(f"[variants] {short}: train / eval loss {losses} (finite); step "
+            f"times {', '.join(f'{v:.1f}' for v in ms)} ms (host clock, "
+            f"synchronized; batch of {c.batch_size} clips on the device); "
+            f"after the warm-up step {warm:.1f} ms per step = "
+            f"{c.batch_size / max(warm, 1e-9) * 1e3:.3f} clips/s; peak "
+            f"device memory {numbers[f'{short}_peak_gib']:.2f} GiB [{smi}]")
+        if on_card:
+            from din_tpu_torch.experiments.profile_training import breakdown
+
+            prof = breakdown(lambda: engine.train_step(model, optimizer,
+                                                       sbatch, c), 1)
+            busy = prof["busy_us"]
+            require(busy > 0, "the profiler recorded no device time")
+            numbers[f"{short}_busy_ms"] = busy / 1e3
+            numbers[f"{short}_idle"] = 1 - busy / prof["wall_us"]
+            log(f"[variants] {short}, one profiled step: wall "
+                f"{prof['wall_us'] / 1e3:.1f} ms, device busy "
+                f"{busy / 1e3:.1f} ms (idle share "
+                f"{numbers[f'{short}_idle']:.3f}); device time by kind: "
+                + ", ".join(f"{k} {v / 1e3:.2f} ms"
+                            for k, v in prof["by_category"].items()))
+        if on_card and short == "tce":
+            numbers.update(tce_times(
+                model.multilayer_head_embfeature_context_encoding, c, smi))
+        del model, optimizer, sbatch
+        if on_card:
+            torch.cuda.empty_cache()
+
+        predictor = Predictor.from_checkpoint(c, ckpt, pad_to=2, device=dev)
+        req = make_synthetic_batch(c, 3, rng=np.random.RandomState(SEED + 42))
+        reset_counts()
+        outs, req_ms = [], []
+        for n in (1, 3):
+            tr = time.perf_counter()
+            outs.append(predictor(req["images"][:n], req["boxes"][:n])[
+                "activities"])
+            sync()
+            req_ms.append((time.perf_counter() - tr) * 1e3)
+        sexpect, show = derived_counts(c, 0, c.num_frames, 1 + 2,
+                                       c.num_frames, eval_batch=2)
+        check_counts(f"{short}_serve", read_counts(), sexpect,
+                     show + "; requests of 1 and 3 clips at pad_to=2")
+        for out, n in zip(outs, (1, 3)):
+            require(out.shape == (n, c.num_activities)
+                    and np.isfinite(out).all()
+                    and np.abs(out.sum(-1) - 1).max() <= 1e-5,
+                    f"{short}: posteriors are off")
+        rep = float(np.abs(outs[0][0] - outs[1][0]).max())
+        log(f"[variants] {short}: Predictor.from_checkpoint(pad_to=2), "
+            f"requests of 1 and 3 clips: {req_ms[0]:.1f}, {req_ms[1]:.1f} ms "
+            f"(host clock; the first includes warm-up); rows finite, sum to "
+            f"1; clip 0 in both differs by {rep:.3g}")
+        del predictor
+
+        if on_card:
+            small = c.replace(image_size=(144, 160), out_size=(4, 5),
+                              num_frames=3, compute_dtype="float32",
+                              train_dropout_prob=0.0,
+                              load_backbone_stage2=False)
+            gen = torch.Generator().manual_seed(SEED)
+            cpu_model = build_model(small, device="cpu", generator=gen)
+            _randomize_din(cpu_model, gen)
+            n_fixed = _zero_fixed_dropouts(cpu_model)
+            clip = make_synthetic_batch(small, 1,
+                                        rng=np.random.RandomState(SEED + 1))
+            on_cpu = Predictor(small, cpu_model, device="cpu")(
+                clip["images"], clip["boxes"])["activities"]
+            errs = {}
+            for what, flags in (("TF32 off", no_tf32),
+                                ("default flags", contextlib.nullcontext)):
+                with flags():
+                    on_gpu = Predictor(small, copy.deepcopy(cpu_model))(
+                        clip["images"], clip["boxes"])["activities"]
+                errs[what] = float(np.abs(on_gpu - on_cpu).max())
+                require(errs[what] <= 1e-4, f"{short} card vs CPU ({what}) "
+                        f"max |diff| {errs[what]}")
+            log(f"[card-vs-cpu] {short}: serving 1 clip T=3 144x160 f32: "
+                f"max |diff| of posteriors {errs['TF32 off']:.3g} (TF32 off), "
+                f"{errs['default flags']:.3g} (the card's default flags) "
+                f"(<= 1e-4)")
+            # along the card's own trajectory the share beyond 2e-5 is
+            # reported, as for stage 1 and the collective path, the 2 lr
+            # per step bound holds: a (1,3) field's offset-conv bias has 6
+            # elements, so one flipped Adam step is 1/6 of it (0.1667 in
+            # _multi, 0.0625 in another run of the same code), and TCE's
+            # attention hands every map cell a gradient, so a flip reaches
+            # all of conv1_1's sums (0.173)
+            with no_tf32():
+                r = train_card_vs_cpu(small, cpu_model, free_share_bound=None)
+            log_train_card_vs_cpu(
+                f"{short} (its {n_fixed} fixed-rate dropouts at 0)", small, r)
+            numbers[f"{short}_card_vs_cpu"] = max(errs.values())
+            del cpu_model
+            torch.cuda.empty_cache()
+        log(f"[variants] {short} done in {time.time() - t0:.2f} s")
+    return dict(counts=counts, numbers=numbers)
+
+
 def derived_counts(c, steps: int, step_T: int, eval_calls: int,
-                   eval_T: int):
+                   eval_T: int, eval_batch=None):
     """Launches of ``steps`` training steps of clips of ``step_T`` frames
     (every layer one by one: the stem needs its gradient) and ``eval_calls``
-    eval calls of clips of ``eval_T`` frames (no gradient: the fused stem
-    and 4 pools per chunk), chunked by ``auto_chunk``; and how.  ResNet-18
-    has no 2x2 pool and no VGG stem: one RoIAlign forward per call, one
-    backward per step, whatever the chunks."""
+    eval calls of ``eval_batch`` (default ``c.test_batch_size``; a serving
+    call's ``pad_to``) clips of ``eval_T`` frames (no gradient: the fused
+    stem and 4 pools per chunk), chunked by ``auto_chunk``; and how.  The
+    DIN variants (hierarchical, multi, TCE) run the flagship's trunk, so
+    their launches are its.  ResNet-18 has no 2x2 pool and no VGG stem: one
+    RoIAlign forward per call, one backward per step, whatever the
+    chunks."""
     from din_tpu_torch.models.trunk import auto_chunk
 
     H, W = c.image_size
     step_frames = c.batch_size * step_T
     step_chunks = step_frames // auto_chunk(
         step_frames, H, W, c.frame_chunk, c.train_backbone)
-    eval_frames = c.test_batch_size * eval_T
+    eval_frames = (eval_batch or c.test_batch_size) * eval_T
     eval_chunks = eval_frames // auto_chunk(
         eval_frames, H, W, c.frame_chunk, c.train_backbone)
     if c.backbone == "res18":
@@ -1880,6 +2282,11 @@ def main() -> int:
     run_root = native.BUILD_DIR.parent / "smoke_runs"
     run_root.mkdir(parents=True, exist_ok=True)
     disk_s1 = run_root / "ondisk_stage1.pth"
+    # phase 10 serves phase 4's stage-2 file and its reference-ordered
+    # copy; phase 11 grafts the variants from its stage-1 file
+    serve_ckpt = run_root / "phase4_stage2.pth"
+    serve_ref = run_root / "phase4_reference_order.pth"
+    variants_s1 = run_root / "variants_stage1.pth"
     with tempfile.TemporaryDirectory(dir=run_root) as tmp:
         vgg_path = str(Path(tmp) / "vgg16_pretrained.pth")
         vgg_state = write_vgg16_file(vgg_path, SEED + 5)
@@ -1915,8 +2322,9 @@ def main() -> int:
         require(s1_path is not None and Path(s1_path).exists()
                 and Path(s1_path).name.startswith("stage1_epoch1_"),
                 f"no stage-1 component file: {s1_path}")
-        # phase 8 starts its on-disk stage 2 from this file too
+        # phases 8 and 11 start their stage 2 from this file too
         shutil.copy(s1_path, disk_s1)
+        shutil.copy(s1_path, variants_s1)
         comp = torch.load(s1_path, map_location="cpu", weights_only=True)
         require(sorted(comp) == ["backbone_state_dict",
                                  "fc_actions_state_dict",
@@ -2044,6 +2452,8 @@ def main() -> int:
                 "the exporter's order equals the port's")
         ref_path = str(Path(tmp) / "reference_order.pth")
         torch.save(ref, ref_path)
+        shutil.copy(ckpt, serve_ckpt)
+        shutil.copy(ref_path, serve_ref)
         del model, optimizer, state, ostate
         torch.cuda.empty_cache()
         rrcfg, _ = config_from_args([
@@ -2406,6 +2816,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=run_root) as tmp:
         cad_run = collective_path(dev, Path(tmp), smi, reset_counts,
                                   read_counts)
+
+    # -- 10. serving phase 4's trained checkpoint ---------------------------
+    with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        paths = [shutil.move(p, Path(tmp) / p.name)
+                 for p in (serve_ckpt, serve_ref)]
+        ckpt_run = checkpoint_serving(dev, Path(tmp), *map(str, paths), smi,
+                                      reset_counts, read_counts)
+
+    # -- 11. the DIN variants at full width ---------------------------------
+    with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        s1_copy = shutil.move(variants_s1, Path(tmp) / variants_s1.name)
+        variant_run = variants_path(dev, Path(tmp), str(s1_copy), smi,
+                                    reset_counts, read_counts)
     log(f"[total] {time.time() - t_all:.1f} s")
 
     def launches(name):
@@ -2416,7 +2839,11 @@ def main() -> int:
                                      **{path: c[name] for path, c in
                                         disk_counts.items()},
                                      **{path: c[name] for path, c in
-                                        cad_run["counts"].items()}}}
+                                        cad_run["counts"].items()},
+                                     **{path: c[name] for path, c in
+                                        ckpt_run["counts"].items()},
+                                     **{path: c[name] for path, c in
+                                        variant_run["counts"].items()}}}
 
     kernels = [
         {"name": "roi_align", "route": "cuda",

@@ -68,7 +68,7 @@ class Config:
     num_features_boxes: int = 1024                  # NFB
 
     # ARG head (reference config.py:55-62): the GCN baselines read them
-    # (ROADMAP.md §1 item 7); the collective and smoke presets set them
+    # (ROADMAP.md §1 item 4); the collective and smoke presets set them
     num_graph: int = 16                             # NG
     num_features_gcn: int = 1024                    # NFG
     tau_sqrt: bool = False

@@ -1,13 +1,21 @@
 """Serving path (port of din_tpu/experiments/predict.py).
 
 Usage (library):
-    model = build_model(cfg)                    # on the card
-    predictor = Predictor(cfg, model, pad_to=2)
+    predictor = Predictor.from_checkpoint(cfg, "stage2_epoch3_91.20%.pth",
+                                          pad_to=2)        # on the card
     out = predictor(images, boxes)              # dict of softmax posteriors
     out = predictor(images, boxes, bboxes_num)  # collective models
+    predictor = Predictor(cfg, model, pad_to=2) # a model already built
 
-CLI demo on a synthetic clip (random weights from the seed):
-    python -m din_tpu_torch.experiments.predict [--batch 1] [--device cuda]
+CLI demo on synthetic clips (random weights from the seed without
+``--ckpt``):
+    python -m din_tpu_torch.experiments.predict --preset \
+        volleyball_stage2_dynamic --ckpt result/<exp>/stage2_*.pth \
+        [--batch 1] [--pad-to 2] [--device cpu]
+
+``from_checkpoint`` reads a stage-2 ``.pth`` of the port (``train_net``'s
+``save_state``) or of the reference framework, both ``{'epoch',
+'state_dict', 'optimizer'}``; it loads strictly and ignores the optimizer.
 
 ``bboxes_num`` [B,T] is the true actor count of each frame; the collective
 models mask the padded actors with it, the volleyball models take none.  The
@@ -86,6 +94,25 @@ class Predictor:
         self.model = model.to(self.device).eval()
         self.pad_to = pad_to
 
+    @classmethod
+    def from_checkpoint(cls, cfg, ckpt_path: Optional[str] = None,
+                        pad_to: Optional[int] = None,
+                        device=None) -> "Predictor":
+        """Builds the model of ``cfg`` on ``device`` (default: the card)
+        and, given ``ckpt_path``, loads a stage-2 ``.pth`` into it
+        (din_tpu/experiments/predict.py:131-147): parameters and BatchNorm
+        buffers, strictly (a tensor of the model the file lacks raises, as
+        does one the file has and the model lacks); the optimizer state is
+        ignored.  Without ``ckpt_path`` the weights are random, from
+        ``cfg.train_random_seed``."""
+        from din_tpu_torch.models.registry import build_model
+        from din_tpu_torch.train.checkpoint import load_state
+
+        model = build_model(cfg, device=device)
+        if ckpt_path:
+            load_state(ckpt_path, model)
+        return cls(cfg, model, pad_to=pad_to, device=device)
+
     def _run(self, images, boxes, bboxes_num=None) -> Dict:
         """One forward call on the device; softmax posteriors as numpy."""
         images = torch.from_numpy(np.ascontiguousarray(images)).to(
@@ -117,11 +144,12 @@ class Predictor:
 def main(argv=None):
     from din_tpu_torch.data.synthetic import make_synthetic_batch
     from din_tpu_torch.experiments.presets import PRESETS
-    from din_tpu_torch.models.registry import build_model
 
     p = argparse.ArgumentParser(description="din_tpu_torch inference demo")
     p.add_argument("--preset", default="volleyball_stage2_dynamic",
                    choices=sorted(PRESETS))
+    p.add_argument("--ckpt", default=None,
+                   help="stage-2 .pth (random weights if omitted)")
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--pad-to", type=int, default=None)
     p.add_argument("--device", default=None,
@@ -129,11 +157,16 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     cfg = PRESETS[args.preset]()
-    model = build_model(cfg, device=args.device)
-    predictor = Predictor(cfg, model, pad_to=args.pad_to, device=args.device)
+    predictor = Predictor.from_checkpoint(cfg, args.ckpt, pad_to=args.pad_to,
+                                          device=args.device)
     batch = make_synthetic_batch(cfg, batch_size=args.batch)
     out = predictor(batch["images"], batch["boxes"], batch.get("bboxes_num"))
     acts = out["activities"]
+    # a model that answers per frame gives m rows a clip (see
+    # chunked_padded_call): fold them back and average each clip's rows
+    # (din_tpu/experiments/predict.py:196-203)
+    m = acts.shape[0] // args.batch
+    acts = acts.reshape(args.batch, m, -1).mean(axis=1)
     top = acts.argmax(-1)
     for b in range(args.batch):
         print(f"clip {b}: activity={int(top[b])} "

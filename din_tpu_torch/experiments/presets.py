@@ -1,7 +1,8 @@
 """Presets of the port (copy of din_tpu/experiments/presets.py, the fields
 the ported slices read).  Other presets join with their models.
 
-The flagship and ``collective_stage2_dynamic`` start stage 2 from the
+The flagship, its three variants (``_hierarchical``, ``_multi``,
+``_tce``) and ``collective_stage2_dynamic`` start stage 2 from the
 stage-1 backbone, as in the JAX package (presets.py:43,50,172), but from a
 ``.pth`` in the reference's stage-1 component layout, which ``train_net``
 writes for a stage-1 preset (the port cannot read the JAX package's msgpack
@@ -9,7 +10,7 @@ writes for a stage-1 preset (the port cannot read the JAX package's msgpack
 ``load_backbone_stage2=False`` to start from random weights.
 
 ``collective_stage1`` is Inception-v3, which comes with ROADMAP.md §1 item
-6: building its model raises until then.  A ResNet-18 stage 1 on the
+5: building its model raises until then.  A ResNet-18 stage 1 on the
 Collective Activity dataset, whose file ``collective_stage2_dynamic``
 grafts, is ``collective_stage1().replace(backbone="res18", out_size=(15,
 23), emb_features=512)``, as with din_tpu's Python API."""
@@ -61,6 +62,34 @@ def volleyball_stage2_dynamic() -> Config:
         max_epoch=30,
         actions_weights=[[1., 1., 2., 3., 1., 2., 2., 0.2, 1.]],
         exp_note="Dynamic Volleyball_stage2_vgg16_litedim128")
+
+
+@preset("volleyball_stage2_dynamic_hierarchical")
+def volleyball_stage2_dynamic_hier() -> Config:
+    """ST-factorised hierarchical DIN (reference README.md:99-105):
+    the (1,3) field, then the (3,1) field."""
+    return volleyball_stage2_dynamic().replace(
+        ST_kernel_size=((1, 3), (3, 1)), hierarchical_inference=True,
+        exp_note="Dynamic Volleyball_stage2_hierarchical_ST")
+
+
+@preset("volleyball_stage2_dynamic_multi")
+def volleyball_stage2_dynamic_multi() -> Config:
+    """Two interaction fields in parallel, summed (reference
+    README.md:102).  din_tpu's preset also sets ``num_DIM=2``, which no
+    code reads: the fields are those of ``ST_kernel_size``."""
+    return volleyball_stage2_dynamic().replace(
+        ST_kernel_size=((1, 3), (3, 1)),
+        exp_note="Dynamic Volleyball_stage2_multiDIM")
+
+
+@preset("volleyball_stage2_dynamic_tce")
+def volleyball_stage2_tce() -> Config:
+    """scripts/train_volleyball_stage2_dynamic_tce.py: the flagship with
+    the TCE context encoder and no lite bottleneck."""
+    return volleyball_stage2_dynamic().replace(
+        inference_module_name="dynamic_tce_volleyball", lite_dim=None,
+        exp_note="Dynamic-TCE Volleyball_stage2")
 
 
 @preset("collective_stage1")

@@ -37,7 +37,7 @@ test split and trains nothing (run.py:94-103):
         --stage2-model-path result/exp/stage2_epoch3_91.20%.pth --eval-only
 
 The Collective Activity path (ResNet-18, T=10, 13 actors): stage 1 is
-Inception-v3 in the presets (ROADMAP.md §1 item 6); a ResNet-18 stage 1 is
+Inception-v3 in the presets (ROADMAP.md §1 item 5); a ResNet-18 stage 1 is
 ``collective_stage1().replace(backbone="res18", out_size=(15, 23),
 emb_features=512)`` through ``train_net``, whose component file stage 2
 grafts:

@@ -17,7 +17,8 @@ backward (``ieee_conv2d``), as the JAX package runs them at
 the affinity logits and into their gradients.
 
 Parameter names are the reference's: ``DIMlist.{i}.p_conv.{ratio}``,
-``scale_conv.{ratio}``, ``hidden_weight``, ``beta``.
+``scale_conv.{ratio}``, ``hidden_weight``, ``beta``; the hierarchical head's
+``DPI_1.*``, ``hier_LN.*`` and ``DPI_2.*``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from din_tpu_torch.nn.layers import kaiming_normal_
+from din_tpu_torch.nn.layers import SeededDropout, kaiming_normal_
 from din_tpu_torch.utils.precision import ieee_conv2d
 
 
@@ -235,3 +236,37 @@ class MultiDynamicInference(nn.Module):
             ft = dim(x)
             total = ft if total is None else total + ft
         return total
+
+
+class HierarchicalDynamicInference(nn.Module):
+    """Two stacked DIN fields (e.g. the ST-factorised (1,3) then (3,1))
+    with LayerNorm, ReLU and dropout between them
+    (dynamic_infer_module.py:446-498; din_tpu/heads/din.py:262-306).
+
+    As in the JAX package, ``hier_LN`` normalises DPI_1's output over its
+    whole [T, N, C] (the reference's is stale: a LayerNorm of a hardcoded
+    1024 applied to a tuple, dynamic_infer_module.py:475,492-493), and the
+    dropout (rate 0.5, the reference's ``F.dropout`` default) honours the
+    module's train/eval mode, where the reference's always drops; it draws
+    from its own generator seeded with ``dropout_seed``."""
+
+    def __init__(self, in_dim: int, generator: torch.Generator,
+                 person_mat_shape: Tuple[int, int],
+                 kernel_sizes: Sequence[Tuple[int, int]] = ((1, 3), (3, 1)),
+                 dropout_seed: int = 0, **kwargs):
+        super().__init__()
+        if len(kernel_sizes) != 2:
+            raise ValueError("the hierarchical DIN stacks two fields; got "
+                             f"kernel sizes {kernel_sizes!r}")
+        T, N = person_mat_shape
+        self.DPI_1 = DynamicPersonInference(
+            in_dim, generator, kernel_size=tuple(kernel_sizes[0]), **kwargs)
+        self.hier_LN = nn.LayerNorm((T, N, in_dim))
+        self.dropout = SeededDropout(0.5, dropout_seed)
+        self.DPI_2 = DynamicPersonInference(
+            in_dim, generator, kernel_size=tuple(kernel_sizes[1]), **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B,T,N,C] -> [B,T,N,C]."""
+        ft = self.dropout(torch.relu(self.hier_LN(self.DPI_1(x))))
+        return self.DPI_2(ft)

@@ -12,17 +12,20 @@ from typing import Optional
 import torch
 
 from din_tpu_torch.models.base import BasenetCollective, BasenetVolleyball
-from din_tpu_torch.models.dynamic import DynamicCollective, DynamicVolleyball
+from din_tpu_torch.models.dynamic import (DynamicCollective,
+                                          DynamicTCEVolleyball,
+                                          DynamicVolleyball)
 
 BASENET_MODELS = {"volleyball": BasenetVolleyball,
                   "collective": BasenetCollective}
 STAGE2_MODELS = {"dynamic_volleyball": DynamicVolleyball,
+                 "dynamic_tce_volleyball": DynamicTCEVolleyball,
                  "dynamic_collective": DynamicCollective}
 
-_SLICE_OF = {name: "the remaining heads (§1 item 7)" for name in (
-    "dynamic_tce_volleyball", "pctdm_volleyball", "higcin_volleyball",
-    "at_volleyball", "arg_volleyball", "sacrf_biute_volleyball",
-    "gcnnet_volleyball", "gcnnet_collective")}
+_SLICE_OF = {name: "§1 item 4, the ResNet-18 baselines" for name in (
+    "pctdm_volleyball", "higcin_volleyball", "at_volleyball",
+    "arg_volleyball", "sacrf_biute_volleyball", "gcnnet_volleyball",
+    "gcnnet_collective")}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -50,7 +53,7 @@ def build_model(cfg, device=None,
             if name in _SLICE_OF:
                 raise NotImplementedError(
                     f"model {name!r} is not ported yet: it comes with "
-                    f"{_SLICE_OF[name]} of ROADMAP.md")
+                    f"ROADMAP.md {_SLICE_OF[name]}")
             raise ValueError(f"unknown model {name!r}")
         model = STAGE2_MODELS[name](cfg, generator)
     else:

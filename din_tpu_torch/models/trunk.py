@@ -57,13 +57,16 @@ def trunk_forward(backbone: nn.Module, images: torch.Tensor,
                   boxes: torch.Tensor, *, out_size: Tuple[int, int],
                   crop_size: Tuple[int, int], compute_dtype: torch.dtype,
                   chunk: int, train_backbone: bool,
-                  bn_train: bool = False) -> torch.Tensor:
+                  bn_train: bool = False, return_map: bool = False):
     """images [B,T,H,W,3] uint8; boxes [B,T,N,4] feature-map coords.
-    Returns RoI features [B,T,N,KH,KW,D] in the compute dtype.  Without
-    ``train_backbone`` the backbone runs with no gradient (the JAX trunk's
-    ``stop_gradient``, trunk.py:296-297).  ``bn_train`` puts the backbone's
-    BatchNorms in training mode (batch statistics, running update per
-    chunk), else in eval mode."""
+    Returns RoI features [B,T,N,KH,KW,D] in the compute dtype and, with
+    ``return_map``, also the backbone's map [B*T,OH,OW,D] they were pooled
+    from (the JAX trunk's ``outputs``, trunk.py:327; TCE attends over it).
+    Without ``train_backbone`` the backbone runs with no gradient (the JAX
+    trunk's ``stop_gradient``, trunk.py:296-297), and so does the map; with
+    it, a gradient into the map reaches the backbone.  ``bn_train`` puts
+    the backbone's BatchNorms in training mode (batch statistics, running
+    update per chunk), else in eval mode."""
     B, T, H, W, _ = images.shape
     N = boxes.shape[2]
     frames = images.reshape(B * T, H, W, 3)
@@ -75,15 +78,17 @@ def trunk_forward(backbone: nn.Module, images: torch.Tensor,
     if tuple(feats.shape[1:3]) != tuple(out_size):
         raise NotImplementedError(
             f"backbone map {tuple(feats.shape[1:3])} != out_size "
-            f"{tuple(out_size)}: the align-corners resize comes with the "
-            f"Inception-v3 slice (ROADMAP.md)")
+            f"{tuple(out_size)}: the align-corners resize comes with "
+            f"Inception-v3, ROADMAP.md §1 item 5")
     roi = roi_align(feats, boxes.reshape(B * T, N, 4).float(), crop_size)
     KH, KW = crop_size
-    return roi.reshape(B, T, N, KH, KW, roi.shape[-1])
+    roi = roi.reshape(B, T, N, KH, KW, roi.shape[-1])
+    return (roi, feats) if return_map else roi
 
 
 def trunk_from_cfg(cfg, backbone: nn.Module, images: torch.Tensor,
-                   boxes: torch.Tensor, train: bool) -> torch.Tensor:
+                   boxes: torch.Tensor, train: bool,
+                   return_map: bool = False):
     """``trunk_forward`` with the knobs of ``cfg`` (the one place they map,
     as din_tpu/models/trunk.py:330-349): the chunk of ``auto_chunk``, the
     compute dtype, and BatchNorm in training mode exactly when ``train and
@@ -94,7 +99,8 @@ def trunk_from_cfg(cfg, backbone: nn.Module, images: torch.Tensor,
                          crop_size=cfg.crop_size,
                          compute_dtype=getattr(torch, cfg.compute_dtype),
                          chunk=chunk, train_backbone=cfg.train_backbone,
-                         bn_train=train and not cfg.set_bn_eval)
+                         bn_train=train and not cfg.set_bn_eval,
+                         return_map=return_map)
 
 
 def embed_actors(roi: torch.Tensor, fc_emb: nn.Linear,

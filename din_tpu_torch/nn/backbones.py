@@ -170,7 +170,7 @@ RESNET_SEQ = {"conv1": "features.0", "bn1": "features.1",
 
 BACKBONES = {"vgg16": VGG16Backbone, "res18": ResNet18Backbone}
 # the ROADMAP.md section 1 item that brings each backbone the port lacks
-BACKBONE_ITEM = {"inv3": 6, "vgg19": 7, "res50": 7, "alexnet": 7}
+BACKBONE_ITEM = {"inv3": 5, "vgg19": 6, "res50": 6, "alexnet": 6}
 
 
 def build_backbone(name: str, generator: torch.Generator) -> nn.Module:

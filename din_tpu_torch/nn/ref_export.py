@@ -7,14 +7,18 @@ The port's own copy of what it needs from din_tpu/nn/ref_export.py
 kernels [I,O] -> [O,I], BatchNorm ``scale``/``bias`` and ``batch_stats``
 ``mean``/``var`` -> ``weight``/``bias``/``running_mean``/``running_var``
 with ``num_batches_tracked = 0``, ``point_conv`` to a 1x1 conv and the DIN
-convs as ``_pointconv_inv`` / ``_din_inv`` do (lines 126-153), ``fc_emb_1``
+convs as ``_pointconv_inv`` / ``_din_inv`` do (lines 126-153), the
+hierarchical head's ``DPI_1``/``hier_LN``/``DPI_2`` (lines 248-254), the TCE
+heads as ``_tce_inv`` does (line 196), ``fc_emb_1``
 permuted from the JAX trunk's position-major RoI flatten to the reference's
 channel-major one (``_fc_emb_inv``, lines 212-218).  Keys are the
 reference's, which are the port's module names: ``backbone.features.N``
 (ResNet-18: ``features.0``/``features.1`` for conv1/bn1 and
 ``features.4``-``features.7`` for layer1-4, ``RESNET_SEQ``), ``fc_emb_1``,
 ``nl_emb_1``, ``point_conv``, ``point_ln``, ``DPI.DIMlist.{i}.*`` (the
-collective model's one field: ``DPI.*``), ``dpi_nl``, ``fc_activities``;
+collective model's one field: ``DPI.*``; the hierarchical head:
+``DPI.DPI_1.*``, ``DPI.hier_LN.*``, ``DPI.DPI_2.*``), ``dpi_nl``,
+``multilayer_head_embfeature_context_encoding.CET.{k}.*``, ``fc_activities``;
 for a stage-1 Basenet ``backbone.*``, ``fc_emb``, ``fc_actions``,
 ``fc_activities``.
 
@@ -68,6 +72,24 @@ def _din(d, prefix, out):
         for name in ("p_conv", "scale_conv"):
             if k.startswith(name + "_"):
                 _conv(v, f"{prefix}{name}.{k[len(name) + 1:]}", out)
+
+
+def _tce(d, prefix, out, num_heads=4):
+    """``MultiHeadTCE`` params (``CET_{layer}_{head}``) -> ``{prefix}CET.
+    {layer * num_heads + head}.*``; the first layer's 1x1 conv is
+    ``downsample2``, a later one's ``downsample`` (ref_export.py:196-210)."""
+    for k, v in d.items():
+        i, j = (int(s) for s in k.split("_")[1:])
+        key = f"{prefix}CET.{i * num_heads + j}."
+        ds = "downsample2" if i == 0 else "downsample"
+        out[f"{key}{ds}.weight"] = \
+            _np(v["downsample"]["kernel"]).T[:, :, None, None]
+        out[f"{key}{ds}.bias"] = _np(v["downsample"]["bias"])
+        _lin(v["emb_roi"], f"{key}emb_roi", out)
+        _ln(v["layernorm1"], f"{key}layernorm1", out)
+        _ln(v["layernorm2"], f"{key}layernorm2", out)
+        _lin(v["FFN_1"], f"{key}FFN.0", out)
+        _lin(v["FFN_2"], f"{key}FFN.3", out)
 
 
 def _module_key(path, backbone: str) -> str:
@@ -149,11 +171,19 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg,
     if "nl_emb_1" in params["embed"]:
         _ln(params["embed"]["nl_emb_1"], "nl_emb_1", out)
 
-    if "collective" in cfg.inference_module_name and "DPI" in params:
-        _din(params["DPI"]["DIM_0"], "DPI.", out)     # Dynamic_collective
+    dpi = params.get("DPI", {})
+    if "DPI_1" in dpi:                                # hierarchical
+        _din(dpi["DPI_1"], "DPI.DPI_1.", out)
+        _din(dpi["DPI_2"], "DPI.DPI_2.", out)
+        _ln(dpi["hier_LN"], "DPI.hier_LN", out)
+    elif "collective" in cfg.inference_module_name and dpi:
+        _din(dpi["DIM_0"], "DPI.", out)               # Dynamic_collective
     else:
-        for k, v in params.get("DPI", {}).items():
+        for k, v in dpi.items():
             _din(v, f"DPI.DIMlist.{k.split('_')[1]}.", out)
+    if "tce" in params:
+        _tce(params["tce"], "multilayer_head_embfeature_context_encoding.",
+             out)
     for tln in ("dpi_nl", "point_ln"):
         if tln in params:
             _ln(params[tln]["ln"], tln, out)

@@ -6,8 +6,12 @@ The port's own copy of din_tpu/nn/ref_import.py ``load_reference_checkpoint``
 din_tpu/nn/torch_port.py ``torch_file_to_numpy`` / ``convert_backbone_state``
 (lines 35-111), for the models the port has.  A reference
 ``Dynamic_collective`` file holds its one DIN field as ``DPI.*``, which is
-the port's ``DynamicCollective.DPI``; BatchNorm buffers load with the
-parameters.  The port's modules carry the
+the port's ``DynamicCollective.DPI``; the hierarchical head's
+``DPI.DPI_1.*``, ``DPI.hier_LN.*``, ``DPI.DPI_2.*`` and TCE's
+``multilayer_head_embfeature_context_encoding.CET.{k}.*`` (``downsample2``
+in the first layer) are the port's module names too
+(din_tpu/nn/ref_import.py:141-161,190-210,275-279); BatchNorm buffers load
+with the parameters.  The port's modules carry the
 reference's names and layouts, so what the JAX package converts (NHWC
 kernels, the position-major RoI flatten) here loads by name as it is.
 
@@ -150,7 +154,7 @@ def load_reference_optimizer(model: torch.nn.Module,
             raise ValueError(f"moment supplied for frozen param at {name}")
         # din_tpu halves the moments of nn.LSTM's two biases, which its
         # import sums; no model of the port has an LSTM yet (PCTDM comes
-        # with ROADMAP.md §1 item 7), so nothing here needs it
+        # with ROADMAP.md §1 item 4), so nothing here needs it
         mu, nu = pstate["exp_avg"], pstate["exp_avg_sq"]
         if tuple(mu.shape) != tuple(p.shape) or \
                 tuple(nu.shape) != tuple(p.shape):

@@ -21,6 +21,7 @@ Reading the JAX package's msgpack ``.ckpt`` files is not ported.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
@@ -40,11 +41,17 @@ def save_state(path: str, epoch: int, model: torch.nn.Module,
 
 
 def load_state(path: str, model: torch.nn.Module,
-               optimizer: torch.optim.Optimizer) -> int:
-    """Restores parameters and Adam state in place; returns the epoch."""
+               optimizer: Optional[torch.optim.Optimizer] = None) -> int:
+    """Restores parameters and BatchNorm buffers, and the Adam state unless
+    ``optimizer`` is None (serving ignores it), in place; returns the
+    epoch.  Strict: a parameter or buffer of the model that the file lacks,
+    or a tensor of the file that the model lacks, raises, so a model never
+    serves half-random weights (din_tpu/train/checkpoint.py:171-174).  A
+    reference full-model ``.pth`` has this layout too and loads by name."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state["state_dict"], strict=True)
-    optimizer.load_state_dict(state["optimizer"])
+    if optimizer is not None:
+        optimizer.load_state_dict(state["optimizer"])
     return int(state["epoch"])
 
 

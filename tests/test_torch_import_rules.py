@@ -112,11 +112,9 @@ def test_unported_models_name_their_roadmap_slice():
     from din_tpu_torch.models.registry import build_model
 
     cfg = _tiny_cfg()
-    for name in ("dynamic_tce_volleyball", "higcin_volleyball"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for name in ("at_volleyball", "higcin_volleyball"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
             build_model(cfg.replace(inference_module_name=name),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
         build_model(cfg.replace(backbone="inv3"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg.replace(hierarchical_inference=True), device="cpu")

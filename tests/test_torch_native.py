@@ -6,6 +6,14 @@ the same source beside its package.  Built by the same compiler against the
 same libjpeg, the two give the same bytes for every frame: at the JPEG's own
 size, where libjpeg's DCT prescale divides it, and where the bilinear resize
 finishes it.  The fallback to PIL is visible in ``decoder()``.
+
+din_tpu writes its library beside its source with ``g++ -o`` and no lock,
+so under ``pytest -n 6`` other workers that import ``din_tpu.native``
+(tests/test_native.py, tests/test_data.py, ...) may be writing the same
+file while this one loads it, which then fails (``available()`` False).
+This file therefore builds din_tpu's source with din_tpu's own build
+function into a directory of its own and points din_tpu's loader there for
+its tests.
 """
 
 import io
@@ -23,11 +31,20 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module", autouse=True)
-def built():
+def built(tmp_path_factory):
     """Both decoders build here (g++ and libjpeg's headers are present);
-    a failed build fails the tests instead of skipping them."""
-    assert native.available(), native.decoder()["error"]
-    assert jax_native.available()
+    a failed build fails the tests instead of skipping them.  din_tpu's
+    library is built in a directory of this module's own, and din_tpu's
+    loader state is restored afterwards."""
+    private = tmp_path_factory.mktemp("din_tpu_native") / "libdin_loader.so"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_SO", str(private))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        assert native.available(), native.decoder()["error"]
+        assert jax_native.available()
+        assert private.exists()
+        yield
 
 
 def _jpeg(rng, h, w, quality=90):
