@@ -67,11 +67,16 @@ class Config:
     num_after: int = 4
     num_features_boxes: int = 1024                  # NFB
 
-    # ARG head (reference config.py:55-62): the GCN baselines read them
-    # (ROADMAP.md §1 item 4); the collective and smoke presets set them
+    # ARG head (reference config.py:55-62): ARG and GCNNet read them
+    # (models/baselines.py); the collective and smoke presets set some
+    num_features_relation: int = 256                # NFR
     num_graph: int = 16                             # NG
     num_features_gcn: int = 1024                    # NFG
+    gcn_layers: int = 1
     tau_sqrt: bool = False
+    # distance mask: actors farther apart than pos_threshold * OW (feature
+    # pixels) are not related (gcn_model.py:48-56)
+    pos_threshold: float = 0.2
 
     # training (reference config.py:64-72)
     train_random_seed: int = 0
@@ -128,6 +133,10 @@ class Config:
     parallel_inference: bool = False
     hierarchical_inference: bool = False
     lite_dim: Optional[int] = None
+
+    # Actor Transformer: attend over the frame-averaged actors instead of
+    # each frame's (reference config.py:99-100)
+    temporal_pooled_first: bool = False
 
     # SACRF + BiUTE's halting loss weight (reference config.py:102-103)
     halting_penalty: float = 1e-4

@@ -1,5 +1,5 @@
 """Presets of the port (copy of din_tpu/experiments/presets.py, the fields
-the ported slices read).  Other presets join with their models.
+the ported slices read), one for each of din_tpu's.
 
 The flagship, its three variants (``_hierarchical``, ``_multi``,
 ``_tce``) and ``collective_stage2_dynamic`` start stage 2 from the
@@ -8,6 +8,14 @@ stage-1 backbone, as in the JAX package (presets.py:43,50,172), but from a
 writes for a stage-1 preset (the port cannot read the JAX package's msgpack
 ``.ckpt``).  A missing stage-1 file raises; pass
 ``load_backbone_stage2=False`` to start from random weights.
+
+The ResNet-18 baselines (``volleyball_stage2_arg``, ``_at``, ``_pctdm``,
+``_higcin``, ``_sacrf_biute``) graft ``result/basemodel_VD_res18.pth``, a
+ResNet-18 stage 1 on Volleyball: ``volleyball_stage1().replace(
+backbone="res18", out_size=(23, 40), emb_features=512)`` through
+``train_net`` (its best component file, copied to that name; start it from
+a torchvision ResNet-18 file with ``pretrained_backbone_path``), as with
+din_tpu's Python API.
 
 ``collective_stage1`` is Inception-v3, which comes with ROADMAP.md §1 item
 5: building its model raises until then.  A ResNet-18 stage 1 on the
@@ -90,6 +98,83 @@ def volleyball_stage2_tce() -> Config:
     return volleyball_stage2_dynamic().replace(
         inference_module_name="dynamic_tce_volleyball", lite_dim=None,
         exp_note="Dynamic-TCE Volleyball_stage2")
+
+
+@preset("volleyball_stage2_arg")
+def volleyball_stage2_arg() -> Config:
+    """scripts/train_volleyball_stage2_arg.py (res18, frozen backbone, 3
+    training frames, the 9-frame 3-crop eval)."""
+    return Config("volleyball").replace(
+        inference_module_name="arg_volleyball", training_stage=2,
+        train_backbone=False, test_before_train=True,
+        backbone="res18", stage1_model_path="result/basemodel_VD_res18.pth",
+        out_size=(23, 40), emb_features=512,
+        batch_size=2, test_batch_size=1, num_frames=3,
+        load_backbone_stage2=True, train_learning_rate=1e-4,
+        lr_plan={11: 3e-5, 21: 1e-5}, max_epoch=30,
+        actions_weights=[[1., 1., 2., 3., 1., 2., 2., 0.2, 1.]],
+        exp_note="ARG Volleyball_stage2")
+
+
+@preset("volleyball_stage2_at")
+def volleyball_stage2_at() -> Config:
+    """scripts/train_volleyball_stage2_at.py."""
+    return Config("volleyball").replace(
+        inference_module_name="at_volleyball", training_stage=2,
+        train_backbone=True, backbone="res18",
+        stage1_model_path="result/basemodel_VD_res18.pth",
+        out_size=(23, 40), emb_features=512,
+        batch_size=2, test_batch_size=1, num_frames=10,
+        load_backbone_stage2=True, train_learning_rate=1e-4,
+        lr_plan={11: 3e-5, 21: 1e-5}, max_epoch=30,
+        temporal_pooled_first=False,
+        actions_weights=[[1., 1., 2., 3., 1., 2., 2., 0.2, 1.]],
+        exp_note="AT Volleyball_stage2")
+
+
+@preset("volleyball_stage2_pctdm")
+def volleyball_stage2_pctdm() -> Config:
+    """scripts/train_volleyball_stage2_pctdm.py."""
+    return Config("volleyball").replace(
+        inference_module_name="pctdm_volleyball", training_stage=2,
+        train_backbone=True, backbone="res18",
+        stage1_model_path="result/basemodel_VD_res18.pth",
+        out_size=(23, 40), emb_features=512,
+        batch_size=2, test_batch_size=1, num_frames=10,
+        load_backbone_stage2=True, train_learning_rate=1e-4,
+        lr_plan={11: 3e-5, 21: 1e-5}, max_epoch=30,
+        actions_weights=[[1., 1., 2., 3., 1., 2., 2., 0.2, 1.]],
+        exp_note="PCTDM Volleyball_stage2")
+
+
+@preset("volleyball_stage2_higcin")
+def volleyball_stage2_higcin() -> Config:
+    """scripts/train_volleyball_stage2_higcin.py (crop 7x7)."""
+    return Config("volleyball").replace(
+        inference_module_name="higcin_volleyball", training_stage=2,
+        train_backbone=True, backbone="res18",
+        stage1_model_path="result/basemodel_VD_res18.pth",
+        out_size=(23, 40), emb_features=512, crop_size=(7, 7),
+        batch_size=2, test_batch_size=1, num_frames=10,
+        load_backbone_stage2=True, train_learning_rate=3e-5,
+        lr_plan={16: 1e-5}, max_epoch=30,
+        actions_weights=[[1., 1., 2., 3., 1., 2., 2., 0.2, 1.]],
+        exp_note="HiGCIN Volleyball_stage2")
+
+
+@preset("volleyball_stage2_sacrf_biute")
+def volleyball_stage2_sacrf() -> Config:
+    """scripts/train_volleyball_stage2_sacrf_biute.py."""
+    return Config("volleyball").replace(
+        inference_module_name="sacrf_biute_volleyball", training_stage=2,
+        train_backbone=True, backbone="res18",
+        stage1_model_path="result/basemodel_VD_res18.pth",
+        out_size=(23, 40), emb_features=512,
+        batch_size=2, test_batch_size=1, num_frames=10,
+        load_backbone_stage2=True, train_learning_rate=1e-4,
+        lr_plan={11: 3e-5, 21: 1e-5}, max_epoch=30, halting_penalty=1e-4,
+        actions_weights=[[1., 1., 2., 3., 1., 2., 2., 0.2, 1.]],
+        exp_note="SACRF-BiUTE Volleyball_stage2")
 
 
 @preset("collective_stage1")

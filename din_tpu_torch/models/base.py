@@ -22,10 +22,9 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from din_tpu_torch.models.dynamic import _linear
 from din_tpu_torch.models.trunk import embed_actors, trunk_from_cfg
 from din_tpu_torch.nn.backbones import build_backbone
-from din_tpu_torch.nn.layers import SeededDropout
+from din_tpu_torch.nn.layers import SeededDropout, kaiming_linear
 from din_tpu_torch.utils.masking import masked_max
 
 
@@ -38,11 +37,12 @@ class _Basenet(nn.Module):
         K = cfg.crop_size[0] * cfg.crop_size[1]
         nfb = cfg.num_features_boxes
         self.backbone = build_backbone(cfg.backbone, generator)
-        self.fc_emb = _linear(K * cfg.emb_features, nfb, generator)
+        self.fc_emb = kaiming_linear(K * cfg.emb_features, nfb, generator)
         self.dropout_emb = SeededDropout(cfg.train_dropout_prob,
                                          cfg.train_random_seed + 1)
-        self.fc_actions = _linear(nfb, cfg.num_actions, generator)
-        self.fc_activities = _linear(nfb, cfg.num_activities, generator)
+        self.fc_actions = kaiming_linear(nfb, cfg.num_actions, generator)
+        self.fc_activities = kaiming_linear(nfb, cfg.num_activities,
+                                            generator)
         if not cfg.train_backbone:
             self.backbone.requires_grad_(False)
 

@@ -32,17 +32,9 @@ from din_tpu_torch.heads.positional import context_position_embedding_sine
 from din_tpu_torch.heads.tce import MultiHeadTCE
 from din_tpu_torch.models.trunk import embed_actors, trunk_from_cfg
 from din_tpu_torch.nn.backbones import build_backbone
-from din_tpu_torch.nn.layers import (SeededDropout, kaiming_normal_,
+from din_tpu_torch.nn.layers import (SeededDropout, kaiming_linear,
                                      lecun_normal_)
 from din_tpu_torch.utils.masking import mask_actors, masked_max
-
-
-def _linear(i: int, o: int, generator: torch.Generator) -> nn.Linear:
-    """nn.Linear with the reference's kaiming-normal init, zero bias."""
-    m = nn.Linear(i, o)
-    kaiming_normal_(m.weight, generator)
-    nn.init.zeros_(m.bias)
-    return m
 
 
 def _din_kwargs(cfg) -> dict:
@@ -79,7 +71,7 @@ class _DynamicModel(nn.Module):
         nfb = cfg.num_features_boxes
 
         self.backbone = build_backbone(cfg.backbone, generator)
-        self.fc_emb_1 = _linear(K * cfg.emb_features, nfb, generator)
+        self.fc_emb_1 = kaiming_linear(K * cfg.emb_features, nfb, generator)
         self.nl_emb_1 = nn.LayerNorm(nfb)
         self.dim = nfb
         if cfg.lite_dim:
@@ -126,7 +118,8 @@ class DynamicVolleyball(_DynamicModel):
         self.dpi_nl = nn.LayerNorm((cfg.num_frames, cfg.num_boxes, dim))
         self.dropout_global = SeededDropout(cfg.train_dropout_prob,
                                             cfg.train_random_seed + 1)
-        self.fc_activities = _linear(dim, cfg.num_activities, generator)
+        self.fc_activities = kaiming_linear(dim, cfg.num_activities,
+                                            generator)
         self._freeze_backbone()
 
     def _readout(self, feats: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -210,7 +203,8 @@ class DynamicCollective(_DynamicModel):
         self.dpi_nl = nn.LayerNorm((cfg.num_frames, self.dim))
         self.dropout_global = SeededDropout(cfg.train_dropout_prob,
                                             cfg.train_random_seed + 1)
-        self.fc_activities = _linear(self.dim, cfg.num_activities, generator)
+        self.fc_activities = kaiming_linear(self.dim, cfg.num_activities,
+                                            generator)
         self._freeze_backbone()
 
     def forward(self, images: torch.Tensor, boxes: torch.Tensor,

@@ -1,7 +1,7 @@
 """Model registry (port of din_tpu/models/registry.py).  Stage 1 builds the
 dataset's Basenet, stage 2 the ``inference_module_name`` model, as the
-reference's trainer dispatches (train_net_dynamic.py:75-93); models not
-ported yet name the ROADMAP.md item that brings them.  Every model takes
+reference's trainer dispatches (train_net_dynamic.py:75-93); every stage-2
+model of din_tpu's registry is here.  Every model takes
 ``model(images, boxes, bboxes_num)``; the volleyball models ignore the
 count, the collective ones mask the padded actors with it."""
 
@@ -12,6 +12,12 @@ from typing import Optional
 import torch
 
 from din_tpu_torch.models.base import BasenetCollective, BasenetVolleyball
+from din_tpu_torch.models.baselines import (ARGVolleyball, ATVolleyball,
+                                            GCNNetCollective,
+                                            GCNNetVolleyball,
+                                            HiGCINVolleyball,
+                                            PCTDMVolleyball,
+                                            SACRFBiUTEVolleyball)
 from din_tpu_torch.models.dynamic import (DynamicCollective,
                                           DynamicTCEVolleyball,
                                           DynamicVolleyball)
@@ -20,12 +26,14 @@ BASENET_MODELS = {"volleyball": BasenetVolleyball,
                   "collective": BasenetCollective}
 STAGE2_MODELS = {"dynamic_volleyball": DynamicVolleyball,
                  "dynamic_tce_volleyball": DynamicTCEVolleyball,
-                 "dynamic_collective": DynamicCollective}
-
-_SLICE_OF = {name: "§1 item 4, the ResNet-18 baselines" for name in (
-    "pctdm_volleyball", "higcin_volleyball", "at_volleyball",
-    "arg_volleyball", "sacrf_biute_volleyball", "gcnnet_volleyball",
-    "gcnnet_collective")}
+                 "dynamic_collective": DynamicCollective,
+                 "pctdm_volleyball": PCTDMVolleyball,
+                 "higcin_volleyball": HiGCINVolleyball,
+                 "at_volleyball": ATVolleyball,
+                 "arg_volleyball": ARGVolleyball,
+                 "sacrf_biute_volleyball": SACRFBiUTEVolleyball,
+                 "gcnnet_volleyball": GCNNetVolleyball,
+                 "gcnnet_collective": GCNNetCollective}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -50,10 +58,6 @@ def build_model(cfg, device=None,
     elif cfg.training_stage == 2:
         name = cfg.inference_module_name
         if name not in STAGE2_MODELS:
-            if name in _SLICE_OF:
-                raise NotImplementedError(
-                    f"model {name!r} is not ported yet: it comes with "
-                    f"ROADMAP.md {_SLICE_OF[name]}")
             raise ValueError(f"unknown model {name!r}")
         model = STAGE2_MODELS[name](cfg, generator)
     else:

@@ -47,6 +47,17 @@ def kaiming_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
     w.normal_(0.0, math.sqrt(2.0 / _fan_in(w)), generator=generator)
 
 
+def kaiming_linear(i: int, o: int, generator: torch.Generator,
+                   bias: bool = True) -> nn.Linear:
+    """``nn.Linear`` with the reference's kaiming-normal init and a zero
+    bias (din_tpu's ``nn.Dense(kernel_init=kaiming_normal_init)``)."""
+    m = nn.Linear(i, o, bias=bias)
+    kaiming_normal_(m.weight, generator)
+    if bias:
+        nn.init.zeros_(m.bias)
+    return m
+
+
 class MaxPool2x2(nn.Module):
     """torch ``MaxPool2d(2, 2)`` (floor mode) on an NCHW map held in
     ``channels_last`` memory, through kernel K2 on the card."""

@@ -3,15 +3,17 @@ Adam state (numpy only).
 
 The port's own copy of what it needs from din_tpu/nn/ref_export.py
 ``export_backbone_state`` and ``export_model_state`` (lines 35-95,
-221-305), for the models the port has: conv kernels HWIO -> OIHW, Dense
-kernels [I,O] -> [O,I], BatchNorm ``scale``/``bias`` and ``batch_stats``
-``mean``/``var`` -> ``weight``/``bias``/``running_mean``/``running_var``
-with ``num_batches_tracked = 0``, ``point_conv`` to a 1x1 conv and the DIN
-convs as ``_pointconv_inv`` / ``_din_inv`` do (lines 126-153), the
-hierarchical head's ``DPI_1``/``hier_LN``/``DPI_2`` (lines 248-254), the TCE
-heads as ``_tce_inv`` does (line 196), ``fc_emb_1``
-permuted from the JAX trunk's position-major RoI flatten to the reference's
-channel-major one (``_fc_emb_inv``, lines 212-218).  Keys are the
+221-305), for every model of din_tpu's registry: conv kernels HWIO ->
+OIHW, Dense kernels [I,O] -> [O,I], BatchNorm ``scale``/``bias`` and
+``batch_stats`` ``mean``/``var`` -> ``weight``/``bias``/``running_mean``/
+``running_var`` with ``num_batches_tracked = 0``, ``point_conv`` to a 1x1
+conv and the DIN convs as ``_pointconv_inv`` / ``_din_inv`` do (lines
+126-153), the hierarchical head's ``DPI_1``/``hier_LN``/``DPI_2`` (lines
+248-254), the TCE heads as ``_tce_inv`` does (line 196), the baselines'
+heads as lines 132-195 and 256-295 write them (``_lstm``, ``_att_block``,
+``_gcn``, ``_cib``: AT, SACRF+BiUTE, PCTDM, HiGCIN, ARG and GCNNet),
+``fc_emb_1`` permuted from the JAX trunk's position-major RoI flatten to
+the reference's channel-major one (``_fc_emb_inv``, lines 212-218).  Keys are the
 reference's, which are the port's module names: ``backbone.features.N``
 (ResNet-18: ``features.0``/``features.1`` for conv1/bn1 and
 ``features.4``-``features.7`` for layer1-4, ``RESNET_SEQ``), ``fc_emb_1``,
@@ -92,6 +94,62 @@ def _tce(d, prefix, out, num_heads=4):
         _lin(v["FFN_2"], f"{key}FFN.3", out)
 
 
+def _lstm(d, key, out, suffix=""):
+    """din_tpu's ``TorchLSTM`` (one fused bias) -> ``nn.LSTM`` keys with
+    ``bias_ih = bias``, ``bias_hh = 0`` (ref_export.py:132-136)."""
+    out[f"{key}.weight_ih_l0{suffix}"] = _np(d["kernel_i"]).T
+    out[f"{key}.weight_hh_l0{suffix}"] = _np(d["kernel_h"]).T
+    out[f"{key}.bias_ih_l0{suffix}"] = _np(d["bias"])
+    out[f"{key}.bias_hh_l0{suffix}"] = np.zeros_like(_np(d["bias"]))
+
+
+def _att_block(d, prefix, out):
+    """A SACRF attention block: heads ``att_{i}`` -> ``attlist.{i}.*``,
+    ``W_out``, ``layernorm1``, the FFN and the spatial block's ``w``
+    (ref_export.py:154-168)."""
+    for k, v in d.items():
+        if k.startswith("att_"):
+            for name in ("theta", "phi", "fun_g"):
+                _lin(v[name], f"{prefix}attlist.{k[4:]}.{name}", out)
+    _lin(d["W_out"], f"{prefix}W_out", out)
+    _ln(d["layernorm1"], f"{prefix}layernorm1", out)
+    _lin(d["FFN_linear1"], f"{prefix}FFN_linear1", out)
+    _lin(d["FFN_linear2"], f"{prefix}FFN_linear2", out)
+    if "w" in d:
+        out[f"{prefix}w"] = _np(d["w"])
+
+
+def _gcn(d, prefix, out, ln_over_features: bool):
+    """A GCN layer's stacked [NG, ...] arrays -> the per-graph ModuleList
+    keys (ref_export.py:171-184).  A LayerNorm over [NFG] (the collective
+    model) is stored [NG, 1, NFG] in din_tpu and [NFG] per graph here, as
+    in the reference."""
+    for i in range(_np(d["theta_kernel"]).shape[0]):
+        for name, kernel, bias in (("fc_rn_theta_list", "theta_kernel",
+                                    "theta_bias"),
+                                   ("fc_rn_phi_list", "phi_kernel",
+                                    "phi_bias")):
+            out[f"{prefix}{name}.{i}.weight"] = _np(d[kernel])[i].T
+            out[f"{prefix}{name}.{i}.bias"] = _np(d[bias])[i]
+        out[f"{prefix}fc_gcn_list.{i}.weight"] = _np(d["gcn_kernel"])[i].T
+        for k, leaf in (("weight", "nl_gcn_scale"), ("bias", "nl_gcn_bias")):
+            v = _np(d[leaf])[i]
+            out[f"{prefix}nl_gcn_list.{i}.{k}"] = v.reshape(-1) \
+                if ln_over_features else v
+
+
+def _cib(params, stats, prefix, out):
+    """A HiGCIN CrossInferBlock and its BatchNorm statistics
+    (ref_export.py:187-195)."""
+    for name in ("theta", "phi", "fun_g", "W"):
+        _lin(params[name], f"{prefix}{name}", out)
+    _ln(params["bn"], f"{prefix}bn", out)
+    if stats:
+        out[f"{prefix}bn.running_mean"] = _np(stats["bn"]["mean"])
+        out[f"{prefix}bn.running_var"] = _np(stats["bn"]["var"])
+        out[f"{prefix}bn.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
 def _module_key(path, backbone: str) -> str:
     """flax module names -> torch key prefix (ref_export.py:42-64): a
     numeric part joins its parent with '.' (``features_3`` ->
@@ -144,12 +202,14 @@ def export_backbone_state(params: Dict[str, Any],
 def jax_params_to_state_dict(params: Dict[str, Any], cfg,
                              batch_stats: Optional[Dict[str, Any]] = None
                              ) -> Dict[str, np.ndarray]:
-    """JAX ``variables['params']`` (and, for a backbone with BatchNorm,
-    ``variables['batch_stats']``) of a DynamicVolleyball or
-    DynamicCollective or, at ``cfg.training_stage == 1``, a Basenet (nested
-    dicts of arrays) -> the port's ``state_dict`` as numpy arrays.  The
-    stage-1 embedding ``embed/fc_emb_1`` is the Basenet's ``fc_emb``
-    (ref_export.py:313-334)."""
+    """JAX ``variables['params']`` (and, for a backbone or head with
+    BatchNorm, ``variables['batch_stats']``) of a stage-2 model (DIN,
+    TCE+DIN or a baseline: PCTDM, HiGCIN, AT, ARG, SACRF+BiUTE, GCNNet)
+    or, at ``cfg.training_stage == 1``, a Basenet (nested dicts of arrays)
+    -> the port's ``state_dict`` as numpy arrays.  The stage-1 embedding
+    ``embed/fc_emb_1`` is the Basenet's ``fc_emb`` (ref_export.py:313-334).
+    Without ``batch_stats`` HiGCIN's head BatchNorms get no buffers (the
+    Adam moments of ``jax_train_state_to_torch`` have none)."""
     K = cfg.crop_size[0]
     D = cfg.emb_features
     out: Dict[str, np.ndarray] = {}
@@ -161,15 +221,17 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg,
                                       cfg.backbone).items():
         out["backbone." + k] = v
 
-    fc = params["embed"]["fc_emb_1"]
-    fc_key = "fc_emb" if cfg.training_stage == 1 else "fc_emb_1"
-    kernel = _np(fc["kernel"])                       # [K*K*D, NFB], (i,j,d)
-    nfb = kernel.shape[1]
-    out[f"{fc_key}.weight"] = kernel.T.reshape(nfb, K, K, D) \
-        .transpose(0, 3, 1, 2).reshape(nfb, -1)
-    out[f"{fc_key}.bias"] = _np(fc["bias"])
-    if "nl_emb_1" in params["embed"]:
-        _ln(params["embed"]["nl_emb_1"], "nl_emb_1", out)
+    embed = params.get("embed", {})          # HiGCIN has no embedding
+    if "fc_emb_1" in embed:
+        fc = embed["fc_emb_1"]
+        fc_key = "fc_emb" if cfg.training_stage == 1 else "fc_emb_1"
+        kernel = _np(fc["kernel"])                   # [K*K*D, NFB], (i,j,d)
+        nfb = kernel.shape[1]
+        out[f"{fc_key}.weight"] = kernel.T.reshape(nfb, K, K, D) \
+            .transpose(0, 3, 1, 2).reshape(nfb, -1)
+        out[f"{fc_key}.bias"] = _np(fc["bias"])
+    if "nl_emb_1" in embed:
+        _ln(embed["nl_emb_1"], "nl_emb_1", out)
 
     dpi = params.get("DPI", {})
     if "DPI_1" in dpi:                                # hierarchical
@@ -184,9 +246,38 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg,
     if "tce" in params:
         _tce(params["tce"], "multilayer_head_embfeature_context_encoding.",
              out)
-    for tln in ("dpi_nl", "point_ln"):
+    for tln in ("dpi_nl", "point_ln", "pctdm_nl"):
         if tln in params:
             _ln(params[tln]["ln"], tln, out)
+    if "AT" in params:
+        for name in ("Q_W", "K_W", "V_W", "FFN_linear1", "FFN_linear2"):
+            _lin(params["AT"][name], f"AT.{name}", out)
+        for name in ("layernorm1", "layernorm2"):
+            _ln(params["AT"][name], f"AT.{name}", out)
+    if "SACRF" in params:
+        sacrf = params["SACRF"]
+        for name in ("f_u", "f_spatil_att", "f_temporal_att",
+                     "compatible_trans_s", "compatible_trans_t", "halt_fc"):
+            _lin(sacrf[name], f"SACRF.{name}", out)
+        _att_block(sacrf["spatial_att"], "SACRF.spatial_att.", out)
+        _att_block(sacrf["temporal_att"], "SACRF.temporal_att.", out)
+    if "BiUTE" in params:
+        _lin(params["BiUTE"]["q"], "BiUTE.q", out)
+    if "pctdm" in params:
+        p = params["pctdm"]
+        _lstm(p["Bi_Lstm"]["fwd"], "pctdm.Bi_Lstm", out)
+        _lstm(p["Bi_Lstm"]["bwd"], "pctdm.Bi_Lstm", out, "_reverse")
+        for name in ("att_source_weights", "att_context_weights",
+                     "att_extra_weights"):
+            _lin(p[name], f"pctdm.{name}.0", out)
+        _lstm(p["Intra_Group_LSTM"], "pctdm.Intra_Group_LSTM", out)
+    for cib in ("BIM", "PIM"):
+        if cib in params:
+            _cib(params[cib], (batch_stats or {}).get(cib), f"{cib}.", out)
+    for k in sorted(params):
+        if k.startswith("gcn_"):
+            _gcn(params[k], f"gcn_list.{k.split('_')[1]}.", out,
+                 "collective" in cfg.inference_module_name)
     if "point_conv" in params:
         pc = params["point_conv"]
         out["point_conv.weight"] = _np(pc["kernel"]).T[:, :, None, None]

@@ -7,13 +7,17 @@ din_tpu/nn/torch_port.py ``torch_file_to_numpy`` / ``convert_backbone_state``
 (lines 35-111), for the models the port has.  A reference
 ``Dynamic_collective`` file holds its one DIN field as ``DPI.*``, which is
 the port's ``DynamicCollective.DPI``; the hierarchical head's
-``DPI.DPI_1.*``, ``DPI.hier_LN.*``, ``DPI.DPI_2.*`` and TCE's
+``DPI.DPI_1.*``, ``DPI.hier_LN.*``, ``DPI.DPI_2.*``, TCE's
 ``multilayer_head_embfeature_context_encoding.CET.{k}.*`` (``downsample2``
-in the first layer) are the port's module names too
-(din_tpu/nn/ref_import.py:141-161,190-210,275-279); BatchNorm buffers load
-with the parameters.  The port's modules carry the
-reference's names and layouts, so what the JAX package converts (NHWC
-kernels, the position-major RoI flatten) here loads by name as it is.
+in the first layer) and the baselines' heads (``AT.*``, ``SACRF.*``,
+``BiUTE.*``, ``pctdm.*``, ``BIM.*``/``PIM.*``, ``gcn_list.*``) are the
+port's module names too (din_tpu/nn/ref_import.py:141-295); BatchNorm
+buffers load with the parameters.  PCTDM's ``nn.LSTM`` biases
+``bias_ih_l0`` and ``bias_hh_l0`` are folded into the one trainable bias
+``bias_ih_l0`` when they load (heads/pctdm.py), as din_tpu sums them.
+The port's modules carry the reference's names and layouts, so what the
+JAX package converts (NHWC kernels, the position-major RoI flatten) here
+loads by name as it is.
 
 Two reference formats (din_tpu/nn/ref_import.py:1-22):
 
@@ -25,13 +29,17 @@ Two reference formats (din_tpu/nn/ref_import.py:1-22):
   ``fc_actions.`` and ``fc_activities.``.
 
 Like the reference's ``loadpart``, a key the model does not have is
-reported, not fatal; a key it has with another shape raises.
+reported, not fatal; a key it has with another shape raises (din_tpu
+writes a collective GCN layer's LayerNorm as [1, NFG], the reference as
+[NFG]: ``GCNModule`` reads both when it loads).
 
 The reference saves torch Adam's state (keyed by parameter index) but never
 restores it.  ``load_reference_optimizer`` rebuilds that index as the JAX
 package does, from the FILE's ``state_dict`` key order minus BatchNorm
 buffers, minus ``backbone.*`` when the backbone is frozen, then gives each
-moment to the port's parameter of that NAME.  A positional
+moment to the port's parameter of that NAME; the moments of an LSTM's two
+biases are halved and added onto its one trainable bias (din_tpu/nn/
+ref_import.py:350-356).  A positional
 ``optimizer.load_state_dict`` would give them to the wrong tensors: the port
 registers ``point_conv``/``point_ln`` before ``DPI``, while the JAX
 package's exporter writes them after ``dpi_nl`` (din_tpu/nn/ref_export.py
@@ -41,6 +49,7 @@ package's exporter writes them after ``dpi_nl`` (din_tpu/nn/ref_export.py
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict, List, Tuple
 
 import torch
@@ -48,6 +57,7 @@ import torch
 from din_tpu_torch.nn.backbones import BACKBONE_ITEM, RESNET_SEQ
 
 _BUFFER_SUFFIXES = ("running_mean", "running_var", "num_batches_tracked")
+_LSTM_BIAS = re.compile(r"\.bias_(ih|hh)_l0(_reverse)?$")
 _COMPONENTS = (("backbone_state_dict", "backbone."),
                ("fc_emb_state_dict", "fc_emb_1."),
                ("fc_actions_state_dict", "fc_actions."),
@@ -85,7 +95,10 @@ def load_reference_checkpoint(model: torch.nn.Module, path_or_state
                               ) -> List[str]:
     """Loads every tensor of a reference ``.pth`` (either format) whose key
     the model has into ``model`` in place; returns the keys it skipped.
-    A key the model has with another shape raises ``ValueError``."""
+    A key the model has with another shape raises ``ValueError``, as
+    ``load_state_dict`` finds it after the model's own load hooks (which
+    read the layouts of din_tpu's files, heads/arg.py); the tensors of
+    other keys may have loaded by then."""
     flat = reference_state_dict(_read(path_or_state))
     key = _model_key(model)
     own = model.state_dict()
@@ -95,12 +108,15 @@ def load_reference_checkpoint(model: torch.nn.Module, path_or_state
         if mk not in own:
             skipped.append(k)
             continue
-        if tuple(v.shape) != tuple(own[mk].shape):
-            raise ValueError(f"shape mismatch at {k}: the model has "
-                             f"{tuple(own[mk].shape)}, the file "
-                             f"{tuple(v.shape)}")
         load[mk] = v
-    model.load_state_dict(load, strict=False)
+    try:
+        model.load_state_dict(load, strict=False)
+    except RuntimeError as e:
+        bad = re.search(r"size mismatch for (\S+): (.*)", str(e))
+        if bad is None:
+            raise
+        raise ValueError(f"shape mismatch at {bad.group(1)}: "
+                         f"{bad.group(2)}") from None
     return sorted(skipped)
 
 
@@ -147,19 +163,26 @@ def load_reference_optimizer(model: torch.nn.Module,
     steps = [0.0]
     for pid, pstate in opt_sd["state"].items():
         name = id2name[int(pid)]
+        mu, nu = pstate["exp_avg"], pstate["exp_avg_sq"]
+        lstm = _LSTM_BIAS.search(name)
+        if lstm and key(name[:lstm.start(1)] + "hh" + name[lstm.end(1):]) \
+                not in params:
+            # nn.LSTM's two biases, trained as their sum in bias_ih_l0
+            # (heads/pctdm.py): both moments halved and added there, as
+            # din_tpu's import does (ref_import.py:350-356)
+            name = name[:lstm.start(1)] + "ih" + name[lstm.end(1):]
+            mu, nu = 0.5 * mu, 0.5 * nu
         p = params.get(key(name))
         if p is None:              # a tensor the model has not: skipped
             continue
         if id(p) not in trainable:
             raise ValueError(f"moment supplied for frozen param at {name}")
-        # din_tpu halves the moments of nn.LSTM's two biases, which its
-        # import sums; no model of the port has an LSTM yet (PCTDM comes
-        # with ROADMAP.md §1 item 4), so nothing here needs it
-        mu, nu = pstate["exp_avg"], pstate["exp_avg_sq"]
         if tuple(mu.shape) != tuple(p.shape) or \
                 tuple(nu.shape) != tuple(p.shape):
             raise ValueError(f"moment shape mismatch at {name}: "
                              f"{tuple(p.shape)} vs {tuple(mu.shape)}")
+        if id(p) in moments:       # the other LSTM bias's half
+            mu, nu = moments[id(p)][0] + mu, moments[id(p)][1] + nu
         moments[id(p)] = (mu, nu)
         steps.append(_scalar(pstate["step"]))
 

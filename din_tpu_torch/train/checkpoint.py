@@ -67,7 +67,11 @@ def load_backbone_stage2(model: torch.nn.Module, stage1_path: str) -> None:
     """Grafts ``backbone.*`` (parameters and BatchNorm buffers) and
     ``fc_emb`` -> ``fc_emb_1`` of a stage-1 component file into a stage-2
     model in place (strict per component); the rest, ``nl_emb_1`` included,
-    keeps its init.  A missing file raises."""
+    keeps its init.  A model without ``fc_emb_1`` (HiGCIN works on the raw
+    RoI features) takes the backbone alone, as din_tpu grafts only the
+    subtrees the model has.  A missing file raises."""
     comp = torch.load(stage1_path, map_location="cpu", weights_only=True)
     model.backbone.load_state_dict(comp["backbone_state_dict"], strict=True)
-    model.fc_emb_1.load_state_dict(comp["fc_emb_state_dict"], strict=True)
+    if hasattr(model, "fc_emb_1"):
+        model.fc_emb_1.load_state_dict(comp["fc_emb_state_dict"],
+                                       strict=True)

@@ -109,12 +109,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
 
 
 def test_unported_models_name_their_roadmap_slice():
-    from din_tpu_torch.models.registry import build_model
+    """The baselines of ROADMAP.md §1 item 4 build; a backbone still to
+    port names the item that brings it."""
+    from din_tpu_torch.models.registry import STAGE2_MODELS, build_model
 
     cfg = _tiny_cfg()
     for name in ("at_volleyball", "higcin_volleyball"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
-            build_model(cfg.replace(inference_module_name=name),
-                        device="cpu")
+        model = build_model(cfg.replace(inference_module_name=name),
+                            device="cpu")
+        assert type(model) is STAGE2_MODELS[name]
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
         build_model(cfg.replace(backbone="inv3"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
+        build_model(cfg.replace(backbone="vgg19"), device="cpu")
