@@ -168,7 +168,32 @@ Phases, each timed, any failure exits non-zero:
    GCNNet for Volleyball (the ARG preset) and for Collective Activity
    (``collective_stage2_dynamic``, 480x720) with the model name switched:
    a 1-clip request and one step each; launch counts of every run against
-   ``derived_counts`` (K1b none with a frozen backbone).
+   ``derived_counts`` (K1b none with a frozen backbone);
+13. the remaining backbones of din_tpu at full width: K1 and K1b at their
+   maps (Inception-v3's Mixed_5d of an 8-clip collective eval call,
+   [80,57,87,288] with 13 boxes, 4 zero-padded, and of 720x1280 frames,
+   [20,87,157,288]; ResNet-50's [20,23,40,2048]; AlexNet's [20,21,39,256];
+   12 person-sized boxes; VGG-19's map is VGG-16's) against their plain
+   versions as in phase 2 and timed as in phase 7;
+   ``collective_stage1`` as the preset defines it (Inception-v3 with live
+   BatchNorm, 480x720, out_size Mixed_5d's 57x87, Mixed_6e's 28x43 through
+   the resize rows composed into RoIAlign's) through ``train_net`` from a
+   torchvision-layout Inception-v3 file the smoke writes (3 steps at batch
+   16, an eval of 16 clips of T=10 at batch 8, the component file reloaded
+   strictly), its step time and peak memory; ``volleyball_stage1`` on
+   Inception-v3 at 720x1280 (out_size 87x157, D=1056: 2 steps at batch 8,
+   its evals), the flagship head grafted from it (2 timed steps at batch
+   2, T=10, N=12, peak memory; ``train_net`` 2 steps, an eval, a
+   checkpoint), ``Predictor.from_checkpoint(pad_to=2)`` 1-clip requests
+   (median of six); VGG-19, ResNet-50 and AlexNet under the flagship head
+   at their own maps, each from a torchvision-layout file loaded with
+   ``load_pretrained_backbone`` (the loaded tensors equal the file's):
+   1-clip requests and 2 steps at batch 2; the card against the CPU at
+   128x192, T=3, for the three and ``collective_stage1`` (phase 12's
+   helper; the BatchNorm backbones with Adam's largest step plus 2 f32
+   ulps and running statistics within 1e-4, VGG-19 and AlexNet with the
+   VGG-16 paths' bounds); launch counts of every path against
+   ``derived_counts``.
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -663,9 +688,10 @@ def log_train_card_vs_cpu(what: str, cfg, r: dict, steps: int = 3) -> None:
 
 def card_vs_cpu(short: str, cfg, cpu_model, clip: dict, n_fixed: int,
                 ulps: int = 0, stats_rtol=None) -> float:
-    """One model of phases 11 and 12 on the card against the CPU at the
-    small geometry ``cfg`` (f32, dropout 0, ``n_fixed`` fixed-rate dropouts
-    at 0 in ``cpu_model``): serving ``clip``, with TF32 off and with the
+    """One model of phases 11-13 on the card against the CPU at the small
+    geometry ``cfg`` (f32, dropout 0, ``n_fixed`` fixed-rate dropouts at 0
+    in ``cpu_model``): serving ``clip`` (with its ``bboxes_num`` for a
+    collective model), with TF32 off and with the
     card's default flags, posteriors within 1e-4 and logits within 1e-4 of
     their largest |value| (a saturated softmax hides a wrong head); then
     ``train_card_vs_cpu`` with TF32 off, the free trajectory's share
@@ -673,26 +699,25 @@ def card_vs_cpu(short: str, cfg, cpu_model, clip: dict, n_fixed: int,
     Returns the largest posterior difference."""
     from din_tpu_torch.experiments.predict import Predictor
 
+    inputs = [clip[k] for k in ("images", "boxes", "bboxes_num")
+              if k in clip]
+
     def logits(predictor):
-        images = torch.from_numpy(np.ascontiguousarray(clip["images"]))
-        boxes = torch.from_numpy(np.ascontiguousarray(clip["boxes"],
-                                                      dtype=np.float32))
-        images, boxes = images.to(predictor.device), boxes.to(
-            predictor.device)
+        args = [torch.from_numpy(np.ascontiguousarray(v)).to(
+            predictor.device) for v in inputs]
         with torch.inference_mode():
-            out = predictor.model(images, boxes)
+            out = predictor.model(*args)
         return {k: out[k].float().cpu() for k in ("activities", "actions")
                 if k in out}
 
     on_cpu = Predictor(cfg, cpu_model, device="cpu")
-    want, want_logits = on_cpu(clip["images"], clip["boxes"]), logits(on_cpu)
+    want, want_logits = on_cpu(*inputs), logits(on_cpu)
     errs, lerrs = {}, {}
     for what, flags in (("TF32 off", no_tf32),
                         ("default flags", contextlib.nullcontext)):
         with flags():
             on_gpu = Predictor(cfg, copy.deepcopy(cpu_model))
-            got, got_logits = (on_gpu(clip["images"], clip["boxes"]),
-                               logits(on_gpu))
+            got, got_logits = on_gpu(*inputs), logits(on_gpu)
         errs[what] = max(float(np.abs(got[k] - want[k]).max()) for k in want)
         lerrs[what] = max(float((got_logits[k] - v).abs().max()
                                 / v.abs().max())
@@ -721,26 +746,6 @@ def card_vs_cpu(short: str, cfg, cpu_model, clip: dict, n_fixed: int,
             f"own trajectory max |diff| {r['free_stats']:.3g} (reported, not "
             f"bounded: they follow the drifted weights)")
     return max(errs.values())
-
-
-def write_vgg16_file(path: str, seed: int) -> dict:
-    """A torchvision-layout VGG-16 ``state_dict`` file, as a user's
-    pretrained ImageNet backbone would be: random ``features.*`` at their
-    init scale (std sqrt(2 / fan_in), biases ~0.05) and one small
-    ``classifier.*`` pair standing in for torchvision's classifier (its
-    classifier.0 alone is 400 MB).  Returns the tensors written."""
-    from din_tpu_torch.nn.backbones import VGG16Backbone
-
-    gen = torch.Generator().manual_seed(seed)
-    state = {}
-    for k, v in VGG16Backbone(gen).state_dict().items():
-        fan_in = math.prod(v.shape[1:]) if v.dim() > 1 else 0
-        state[k] = torch.randn(v.shape, generator=gen) * (
-            (2.0 / fan_in) ** 0.5 if fan_in else 0.05)
-    state["classifier.6.weight"] = torch.randn((8, 16), generator=gen)
-    state["classifier.6.bias"] = torch.zeros(8)
-    torch.save(state, path)
-    return state
 
 
 # the JAX package's exporter writes a stage-2 DIN model's keys in this order
@@ -1175,38 +1180,6 @@ def volleyball_on_disk(dev, tmp: Path, s1_path: str, smi: str,
             "ondisk_eval_only": e_counts, "ondisk_stage1": s1_counts}
 
 
-def write_res18_file(path: str, seed: int) -> dict:
-    """A torchvision-layout ResNet-18 ``state_dict`` file, as a user's
-    pretrained ImageNet backbone would be: ``conv1``, ``bn1``,
-    ``layerK.*`` with random convs at their init scale (std sqrt(2 /
-    fan_in)), BatchNorm weights near 1, biases and running means near 0,
-    running variances in [0.5, 1.5], ``num_batches_tracked`` set, and a
-    small ``fc.*`` pair standing in for the classifier.  Returns the
-    tensors written."""
-    from din_tpu_torch.nn.backbones import RESNET_SEQ, ResNet18Backbone
-
-    top = {v: k for k, v in RESNET_SEQ.items()}
-    gen = torch.Generator().manual_seed(seed)
-    state = {}
-    for k, v in ResNet18Backbone(gen).state_dict().items():
-        head, idx, rest = k.split(".", 2)
-        if k.endswith("num_batches_tracked"):
-            t = torch.tensor(1000, dtype=torch.int64)
-        elif k.endswith("running_var"):
-            t = torch.rand(v.shape, generator=gen) + 0.5
-        elif v.dim() == 1:
-            t = 0.1 * torch.randn(v.shape, generator=gen) + float(
-                k.endswith("weight"))
-        else:
-            t = torch.randn(v.shape, generator=gen) * (
-                2.0 / math.prod(v.shape[1:])) ** 0.5
-        state[f"{top[head + '.' + idx]}.{rest}"] = t
-    state["fc.weight"] = torch.randn((8, 512), generator=gen)
-    state["fc.bias"] = torch.zeros(8)
-    torch.save(state, path)
-    return state
-
-
 def cad_boxes(n_frames: int, n_boxes: int, n_pad: int, H: int, W: int,
               gen: torch.Generator) -> torch.Tensor:
     """[F,N,4] boxes as the Collective Activity loader gives them on an
@@ -1302,7 +1275,6 @@ def collective_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
     from din_tpu_torch.experiments.presets import PRESETS
     from din_tpu_torch.experiments.run import config_from_args
     from din_tpu_torch.models.registry import build_model
-    from din_tpu_torch.nn.backbones import RESNET_SEQ
     from din_tpu_torch.train import engine
 
     on_card = dev.type == "cuda"
@@ -1342,22 +1314,18 @@ def collective_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
 
     # -- stage 1: a ResNet-18 BasenetCollective from a torchvision file -------
     res_path = tmp / "resnet18_pretrained.pth"
-    res_state = write_res18_file(str(res_path), SEED + 11)
+    res_state = write_torchvision_file(str(res_path), "res18", SEED + 11)
     s1 = shrink(PRESETS["collective_stage1"]().replace(
         backbone="res18", out_size=out_size, emb_features=512,
         image_size=image_size, data_path="synthetic", max_epoch=1,
         result_root=str(tmp), exp_name="cad_stage1",
         pretrained_backbone_path=str(res_path)))
     model, optimizer, _ = engine.setup_training(s1, dev)
-    feats = model.backbone.state_dict()
-    require(len(feats) == len(res_state) - 2 and all(
-        torch.equal(feats[RESNET_SEQ[k.split(".", 1)[0]] + "."
-                          + k.split(".", 1)[1]].cpu(), v)
-        for k, v in res_state.items() if not k.startswith("fc.")),
-        "the pretrained ResNet-18 differs from the file's tensors")
+    unused = check_loaded(model, res_state, "res18")
     log(f"[cad] stage 1: setup_training loads the torchvision-layout "
-        f"ResNet-18 file's {len(feats)} tensors (BatchNorm statistics "
-        f"included) equal to the file's; fc.* unused")
+        f"ResNet-18 file's {len(model.backbone.state_dict())} tensors "
+        f"(BatchNorm statistics included) equal to the file's; unused: "
+        f"{', '.join(unused)}")
     ms, warm, peak, _ = timed_steps(model, optimizer, s1)
     numbers["stage1_ms"], numbers["stage1_peak_gib"] = warm, peak
     log(f"[cad] stage 1 step times {', '.join(f'{v:.1f}' for v in ms)} ms "
@@ -2063,7 +2031,7 @@ def baselines_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
 
     # -- a ResNet-18 stage 1 on Volleyball, the file the baselines graft ------
     res_path = tmp / "resnet18_pretrained.pth"
-    write_res18_file(str(res_path), SEED + 51)
+    write_torchvision_file(str(res_path), "res18", SEED + 51)
     s1 = shrink(PRESETS["volleyball_stage1"]().replace(
         backbone="res18", out_size=out_size, emb_features=512,
         image_size=image_size, data_path="synthetic", max_epoch=1,
@@ -2253,6 +2221,467 @@ def baselines_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
     return dict(counts=counts, numbers=numbers)
 
 
+def backbone_maps(name: str, H: int, W: int) -> list:
+    """The (h, w) of each map the backbone ``name`` gives for H x W frames
+    (Inception-v3: Mixed_5d, then Mixed_6e), from its layers' strides."""
+    def down(n, k=3, s=2, p=0):
+        return (n + 2 * p - k) // s + 1
+
+    def one(n):
+        if name in ("vgg16", "vgg19"):
+            return n // 32
+        if name in ("res18", "res50"):
+            for _ in range(5):                  # conv1, pool, layer2-4
+                n = down(n, p=1)
+            return n
+        if name == "alex":
+            return down(down(down(down(n, 11, 4, 2))))
+        n = down(down(n), 3, 1)                 # inv3: 1a (s2), 2a
+        n = down(down(down(n), 3, 1))           # pool, 4a, pool
+        return (n, down(n))                     # Mixed_5d, Mixed_6e
+    sizes = (one(H), one(W))
+    if name == "inv3":
+        return [(sizes[0][i], sizes[1][i]) for i in range(2)]
+    return [sizes]
+
+
+BACKBONE_CHANNELS = {"inv3": 1056, "vgg19": 512, "res50": 2048, "alex": 256}
+
+
+def write_torchvision_file(path: str, name: str, seed: int) -> dict:
+    """A torchvision-layout ``state_dict`` file of backbone ``name``, as a
+    user's pretrained ImageNet backbone would be: conv weights at their
+    init scale (std sqrt(2 / fan_in)), conv biases ~0.05, BatchNorm weights
+    near 1, biases and running means near 0, running variances in [0.5,
+    1.5], ``num_batches_tracked`` 1000; ResNet's ``conv1``, ``bn1``,
+    ``layerK``; and small stand-ins of what the backbone leaves out
+    (classifier, ``fc``, Inception-v3's ``AuxLogits`` and ``Mixed_7*``).
+    Returns the tensors written."""
+    from din_tpu_torch.nn.backbones import BACKBONES, RESNET_SEQ
+
+    top = {v: k for k, v in RESNET_SEQ.items()}
+    gen = torch.Generator().manual_seed(seed)
+    own = BACKBONES[name](gen).state_dict()
+    state = {}
+    for k, v in own.items():
+        module = k.rsplit(".", 1)[0]
+        if k.endswith("num_batches_tracked"):
+            t = torch.tensor(1000, dtype=torch.int64)
+        elif k.endswith("running_var"):
+            t = torch.rand(v.shape, generator=gen) + 0.5
+        elif v.dim() > 1:
+            t = torch.randn(v.shape, generator=gen) * (
+                2.0 / math.prod(v.shape[1:])) ** 0.5
+        elif module + ".running_mean" in own:   # a BatchNorm's affine
+            t = 0.1 * torch.randn(v.shape, generator=gen) + float(
+                k.endswith("weight"))
+        else:
+            t = 0.05 * torch.randn(v.shape, generator=gen)
+        if name in ("res18", "res50"):
+            head, idx, rest = k.split(".", 2)
+            k = f"{top[head + '.' + idx]}.{rest}"
+        state[k] = t
+    # torchvision's classifier.0 of a VGG alone is 400 MB
+    extra = {"vgg16": ("classifier.6.weight",),
+             "vgg19": ("classifier.6.weight",),
+             "alex": ("classifier.6.weight",), "res18": ("fc.weight",),
+             "res50": ("fc.weight",),
+             "inv3": ("AuxLogits.fc.weight",
+                      "Mixed_7a.branch3x3_1.conv.weight",
+                      "Mixed_7c.branch_pool.bn.running_var", "fc.weight")}
+    for k in extra[name]:
+        state[k] = torch.randn((8, 16), generator=gen)
+    torch.save(state, path)
+    return state
+
+
+def check_loaded(model: torch.nn.Module, state: dict, name: str) -> list:
+    """Requires every tensor of ``model.backbone`` to equal the tensor of
+    ``write_torchvision_file``'s ``state`` it was loaded from (ResNet's by
+    their torchvision names); returns the file's keys left unused."""
+    from din_tpu_torch.nn.backbones import RESNET_SEQ
+
+    top = {v: k for k, v in RESNET_SEQ.items()}
+    own = model.backbone.state_dict()
+    used = set()
+    for k, v in own.items():
+        key = k
+        if name in ("res18", "res50"):
+            head, idx, rest = k.split(".", 2)
+            key = f"{top[head + '.' + idx]}.{rest}"
+        used.add(key)
+        require(torch.equal(v.cpu(), state[key]),
+                f"{name}: backbone.{k} differs from the file's {key}")
+    return sorted(set(state) - used)
+
+
+def backbones_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
+                   sizes=((480, 720), (720, 1280)), small=(128, 192),
+                   shrink=lambda c: c) -> dict:
+    """Phase 13: Inception-v3 and the two-scale RoIAlign, VGG-19, ResNet-50
+    and AlexNet (see the module docstring).  ``sizes`` (the collective and
+    the Volleyball frames), ``small`` (the card-against-CPU geometry) and
+    ``shrink`` (applied to every config) size it down for a rehearsal on
+    the CPU, where no kernel launches and neither the counts, nor the
+    kernels at the new shapes, nor the card against the CPU are checked.
+    Returns the launch counts of each path, the kernels' errors and times
+    at the new shapes, and the measured numbers."""
+    from din_tpu_torch.data.datasets import return_dataset
+    from din_tpu_torch.data.loader import to_device
+    from din_tpu_torch.data.synthetic import make_synthetic_batch
+    from din_tpu_torch.experiments.predict import Predictor
+    from din_tpu_torch.experiments.presets import PRESETS
+    from din_tpu_torch.models.registry import build_model
+    import torch.nn.functional as F
+
+    from din_tpu_torch.nn.backbones import BACKBONE_HAS_BN, avg_pool_3x3
+    from din_tpu_torch.nn.ref_import import load_pretrained_backbone
+    from din_tpu_torch.train import engine
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    (CH, CW), (VH, VW) = sizes
+    cad_maps = backbone_maps("inv3", CH, CW)
+    t_all = time.time()
+    counts, numbers = {}, {}
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0
+
+    def reset_peak():
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def check_counts(name, got, expect, how):
+        log(f"[backbones] {name}: launches {got}, expected {expect} ({how})")
+        require(not on_card or (got == expect and expect["roi_align"] > 0),
+                f"{name}: launch counts are off")
+        counts[name] = got
+
+    def check_posteriors(out, n, c, what):
+        require(out["activities"].shape[0] == n
+                and all(np.isfinite(v).all()
+                        and np.abs(v.sum(-1) - 1).max() <= 1e-5
+                        for v in out.values()),
+                f"{what}: posteriors are off")
+
+    def loaded(model, state, name):
+        unused = check_loaded(model, state, name)
+        log(f"[backbones] {name}: load_pretrained_backbone put the "
+            f"torchvision-layout file's {len(model.backbone.state_dict())} "
+            f"backbone tensors"
+            + (" (BatchNorm statistics included)" if BACKBONE_HAS_BN[name]
+               else "") + f" in place, equal to the file's; unused: "
+            f"{', '.join(unused)}")
+
+    def timed_steps(model, optimizer, c, batch, n):
+        reset_peak()
+        ms = time_host(lambda: engine.train_step(model, optimizer, batch, c),
+                       n) if on_card else [0.0] * n
+        return ms, peak_gib()
+
+    def requests(predictor, c, req, what):
+        """A 1-clip request (with warm-up), then six more: the median."""
+        nb = req.get("bboxes_num")
+        args = (req["images"][:1], req["boxes"][:1],
+                None if nb is None else nb[:1])
+        tr = time.perf_counter()
+        out = predictor(*args)
+        sync()
+        first = (time.perf_counter() - tr) * 1e3
+        check_posteriors(out, 1, c, what)
+        lat = time_host(lambda: predictor(*args), 6) if on_card else [0.0]
+        numbers[f"{what}_serve_1clip_ms"] = float(np.median(lat))
+        log(f"[backbones] {what}: Predictor(pad_to=2), a 1-clip request "
+            f"of T={c.num_frames} in {first:.1f} ms (warm-up), 6 more: median "
+            f"{np.median(lat):.2f} ms (min {min(lat):.2f}, max "
+            f"{max(lat):.2f}); posteriors finite, rows sum to 1 [{smi}]")
+
+    # -- (e) K1 and K1b at the new maps ----------------------------------------
+    kernels = {}
+    if on_card:
+        t0 = time.time()
+        gen = torch.Generator().manual_seed(SEED + 61)
+        dgen = torch.Generator(device=dev).manual_seed(SEED + 61)
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+        shapes = {
+            # collective_stage1's eval call: 8 clips of 10 frames; 13 slots
+            "inv3_collective": ((80, *cad_maps[0], 288), 13, 4),
+            "inv3_volleyball": ((20, *backbone_maps("inv3", VH, VW)[0], 288),
+                                12, 0),
+            "res50": ((20, *backbone_maps("res50", VH, VW)[0], 2048), 12, 0),
+            "alex": ((20, *backbone_maps("alex", VH, VW)[0], 256), 12, 0)}
+        for key, (shape, nb, pad) in shapes.items():
+            feats = torch.randn(shape, generator=dgen, device=dev)
+            boxes = cad_boxes(shape[0], nb, pad, shape[1], shape[2],
+                              gen).to(dev)
+            errs = check_roi_kernels(feats, boxes, (5, 5), dgen)
+            times = roi_times(feats.bfloat16(), boxes, (5, 5), dgen, flush)
+            kernels[key] = dict(shape=list(shape), boxes=nb,
+                                zero_padded=pad, errs=errs, times=times)
+            log(f"[backbones] K1 and K1b at {key} {list(shape)} x {nb} "
+                f"boxes ({pad} zero-padded), crop 5x5: K1 vs plain max |err| "
+                f"f32 {errs['k1_f32']:.3g} (<= 1e-5), bf16 "
+                f"{errs['k1_bf16']:.3g} (<= 1 ulp); K1b vs plain on the card "
+                f"f32 {errs['k1b_f32']:.3g}, bf16 {errs['k1b_bf16']:.3g} "
+                f"(1e-5 * max|df|, plus 1 ulp in bf16), bit-equal to the "
+                f"plain version on the CPU; bf16 times: K1 wrapper "
+                f"{times['k1_ms']:.4f} ms, bound {times['k1_bound']:.5f} ms "
+                f"({times['k1_mb']:.2f} MB, {times['in_range']} of "
+                f"{times['samples']} samples in range), plain "
+                f"{times['k1_plain']:.4f} ms; K1b wrapper "
+                f"{times['k1b_ms']:.4f} ms, bound {times['k1b_bound']:.5f} ms "
+                f"({times['k1b_mb']:.2f} MB), plain {times['k1b_plain']:.4f} "
+                f"ms [{smi}]")
+            del feats, boxes
+        del flush
+        # Inception-v3's branch pool, forward and backward, against the CPU
+        # on channels_last maps of Mixed_5b and Mixed_6b's inputs: the
+        # port's avg_pool_3x3 (backward = the same pool) is held, PyTorch's
+        # own backward of F.avg_pool2d is reported
+        for shape in ((8, 192, *cad_maps[0]), (8, 768, *cad_maps[1])):
+            x = torch.randn(shape, generator=gen).contiguous(
+                memory_format=torch.channels_last)
+            g = torch.randn(shape, generator=gen)
+            outs = {}
+            for name, pool in (("port", avg_pool_3x3), ("torch", lambda t:
+                               F.avg_pool2d(t, 3, 1, 1))):
+                for d in ("cpu", dev):
+                    xd = x.detach().to(d).requires_grad_()
+                    y = pool(xd)
+                    y.backward(g.to(d))
+                    outs[name, str(d)] = (y.detach().cpu(), xd.grad.cpu())
+            errs = {name: [float((a - b).abs().max() / b.abs().max())
+                           for a, b in zip(outs[name, str(dev)],
+                                           outs[name, "cpu"])]
+                    for name in ("port", "torch")}
+            require(max(errs["port"]) <= 1e-6, f"avg_pool_3x3 {list(shape)} "
+                    f"card vs CPU: {errs['port']}")
+            numbers[f"avg_pool_{shape[1]}_torch_bwd_err"] = errs["torch"][1]
+            log(f"[backbones] Inception's 3x3/s1 average pool on a "
+                f"channels_last f32 {list(shape)} map, card against CPU, "
+                f"largest |diff| over the CPU's largest |value|: avg_pool_3x3 "
+                f"forward {errs['port'][0]:.3g}, backward "
+                f"{errs['port'][1]:.3g} (<= 1e-6); PyTorch's F.avg_pool2d "
+                f"forward {errs['torch'][0]:.3g}, its own backward "
+                f"{errs['torch'][1]:.3g} (reported)")
+        torch.cuda.empty_cache()
+        log(f"[backbones] kernels at the new maps in {time.time() - t0:.2f} s")
+
+    # -- (a) collective_stage1 as the preset defines it (Inception-v3) -------
+    t0 = time.time()
+    inv3_path = tmp / "inception_v3_pretrained.pth"
+    inv3_state = write_torchvision_file(str(inv3_path), "inv3", SEED + 62)
+    s1 = shrink(PRESETS["collective_stage1"]().replace(
+        image_size=(CH, CW), out_size=cad_maps[0], data_path="synthetic",
+        max_epoch=1, result_root=str(tmp), exp_name="cad_inv3_stage1",
+        pretrained_backbone_path=str(inv3_path)))
+    model, optimizer, _ = engine.setup_training(s1, dev)
+    loaded(model, inv3_state, "inv3")
+    batch = to_device(cad_request(s1.replace(num_frames=1), s1.batch_size,
+                                  ([s1.num_boxes, 1, 7] * s1.batch_size)[
+                                      :s1.batch_size], SEED + 63), dev)
+    ms, peak = timed_steps(model, optimizer, s1, batch, 3)
+    numbers["cad_inv3_stage1_step_ms"] = ms[-1]
+    numbers["cad_inv3_stage1_peak_gib"] = peak
+    log(f"[backbones] collective_stage1 ({CH}x{CW}, Mixed_5d "
+        f"{cad_maps[0]} = out_size, Mixed_6e {cad_maps[1]} through the "
+        f"composed rows): step times {', '.join(f'{v:.1f}' for v in ms)} ms "
+        f"(host clock, synchronized; {s1.batch_size} one-frame clips, 13 "
+        f"actor slots, BatchNorm live); peak device memory {peak:.2f} GiB "
+        f"[{smi}]")
+    del model, optimizer, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    _, s1_val = return_dataset(s1)
+    reset_peak()
+    reset_counts()
+    tt = time.time()
+    s1_best = engine.train_net(s1, max_steps_per_epoch=3, device=dev)
+    sync()
+    evals = -(-len(s1_val) // s1.test_batch_size)
+    expect, how = derived_counts(s1, 3, 1, evals, s1.num_frames)
+    log(f"[backbones] collective_stage1: train_net from the torchvision "
+        f"Inception-v3 file, 3 steps, an eval of {len(s1_val)} clips of "
+        f"T={s1.num_frames} at batch {s1.test_batch_size}, a component file, "
+        f"in {time.time() - tt:.2f} s; peak device memory "
+        f"{peak_gib():.2f} GiB")
+    check_counts("cad_inv3_stage1", read_counts(), expect, how)
+    losses = [float(v) for v in re.findall(
+        r"Loss: ([-+0-9.eEnaif]+)",
+        (Path(s1.result_path) / "log.txt").read_text())]
+    require(len(losses) == 2 and all(map(math.isfinite, losses)),
+            f"collective_stage1 losses {losses}")
+    comp = torch.load(s1_best["checkpoint"], map_location="cpu",
+                      weights_only=True)
+    fresh = build_model(s1, device="cpu")
+    for part in ("backbone", "fc_emb", "fc_actions", "fc_activities"):
+        getattr(fresh, part).load_state_dict(comp[f"{part}_state_dict"],
+                                             strict=True)
+    require(int(comp["backbone_state_dict"][
+        "Conv2d_1a_3x3.bn.num_batches_tracked"]) == 1000 + 3,
+        "the component file's BatchNorm did not count 3 steps")
+    log(f"[backbones] collective_stage1: train / eval loss {losses} "
+        f"(finite); its component file reloads strictly into a fresh "
+        f"Basenet (num_batches_tracked 1000 + 3), in {time.time() - t0:.2f} s")
+    del fresh, comp
+
+    # -- (b) Volleyball on Inception-v3 at the reference's defaults ----------
+    t0 = time.time()
+    vd_maps = backbone_maps("inv3", VH, VW)
+    inv3_fields = dict(backbone="inv3", out_size=vd_maps[0],
+                       emb_features=1056, image_size=(VH, VW),
+                       data_path="synthetic", max_epoch=1,
+                       result_root=str(tmp))
+    v1 = shrink(PRESETS["volleyball_stage1"]().replace(
+        exp_name="vd_inv3_stage1", **inv3_fields))
+    _, v1_val = return_dataset(v1)
+    reset_peak()
+    reset_counts()
+    tt = time.time()
+    v1_best = engine.train_net(v1, max_steps_per_epoch=2, device=dev)
+    sync()
+    passes = 1 + bool(v1.test_before_train)
+    expect, how = derived_counts(v1, 2, 1, passes * -(
+        -len(v1_val) // v1.test_batch_size), v1.num_frames)
+    log(f"[backbones] volleyball_stage1 on inv3 ({VH}x{VW}, Mixed_5d "
+        f"{vd_maps[0]} = out_size, Mixed_6e {vd_maps[1]}): train_net, 2 "
+        f"steps of {v1.batch_size} one-frame clips, {passes} evals of "
+        f"{len(v1_val)} clips, in {time.time() - tt:.2f} s; peak device "
+        f"memory {peak_gib():.2f} GiB [{smi}]")
+    check_counts("vd_inv3_stage1", read_counts(), expect, how)
+    v1_file = tmp / "basemodel_VD_inv3.pth"
+    shutil.copy(v1_best["checkpoint"], v1_file)
+    v2 = shrink(PRESETS["volleyball_stage2_dynamic"]().replace(
+        exp_name="vd_inv3_stage2", stage1_model_path=str(v1_file),
+        **inv3_fields))
+    model, optimizer, _ = engine.setup_training(v2, dev)
+    comp = torch.load(v1_file, map_location="cpu", weights_only=True)
+    own = model.state_dict()
+    require(all(torch.equal(own["backbone." + k].cpu(), v)
+                for k, v in comp["backbone_state_dict"].items())
+            and all(torch.equal(own["fc_emb_1." + k].cpu(), v)
+                    for k, v in comp["fc_emb_state_dict"].items()),
+            "the grafted Inception-v3 differs from the stage-1 file")
+    sbatch = to_device(make_synthetic_batch(
+        v2, v2.batch_size, rng=np.random.RandomState(SEED + 64)), dev)
+    ms, peak = timed_steps(model, optimizer, v2, sbatch, 2)
+    numbers["vd_inv3_step_ms"] = ms[-1]
+    numbers["vd_inv3_peak_gib"] = peak
+    log(f"[backbones] volleyball_stage2_dynamic on inv3, grafted from "
+        f"{v1_file.name} (backbone.* with its BatchNorm buffers and fc_emb_1 "
+        f"equal the file's): 2 steps at batch {v2.batch_size}, T="
+        f"{v2.num_frames}, N={v2.num_boxes}: "
+        f"{', '.join(f'{v:.1f}' for v in ms)} ms (host clock, "
+        f"synchronized); peak device memory {peak:.2f} GiB [{smi}]")
+    del model, optimizer, sbatch, comp
+    if on_card:
+        torch.cuda.empty_cache()
+    _, v2_val = return_dataset(v2)
+    reset_counts()
+    tt = time.time()
+    v2_best = engine.train_net(v2, max_steps_per_epoch=2, device=dev)
+    sync()
+    expect, how = derived_counts(v2, 2, v2.num_frames, -(
+        -len(v2_val) // v2.test_batch_size), v2.num_frames)
+    log(f"[backbones] volleyball_stage2_dynamic on inv3: train_net, 2 steps, "
+        f"an eval of {len(v2_val)} clips, a checkpoint, in "
+        f"{time.time() - tt:.2f} s")
+    check_counts("vd_inv3_stage2", read_counts(), expect, how)
+    predictor = Predictor.from_checkpoint(v2, v2_best["checkpoint"],
+                                          pad_to=2, device=dev)
+    req = make_synthetic_batch(v2, 1, rng=np.random.RandomState(SEED + 65))
+    reset_counts()
+    requests(predictor, v2, req, "vd_inv3")
+    expect, how = derived_counts(v2, 0, v2.num_frames,
+                                 7 if on_card else 1, v2.num_frames,
+                                 eval_batch=2)
+    check_counts("vd_inv3_serve", read_counts(), expect,
+                 how + "; 1-clip requests at pad_to=2")
+    del predictor
+    log(f"[backbones] Volleyball on Inception-v3 done in "
+        f"{time.time() - t0:.2f} s")
+
+    # -- (c) VGG-19, ResNet-50 and AlexNet under the flagship head -----------
+    for name in ("vgg19", "res50", "alex"):
+        t0 = time.time()
+        (omap,) = backbone_maps(name, VH, VW)
+        c = shrink(PRESETS["volleyball_stage2_dynamic"]().replace(
+            backbone=name, out_size=omap,
+            emb_features=BACKBONE_CHANNELS[name], image_size=(VH, VW),
+            load_backbone_stage2=False, data_path="synthetic",
+            result_root=str(tmp), exp_name=f"vd_{name}"))
+        path = tmp / f"{name}_pretrained.pth"
+        state = write_torchvision_file(str(path), name, SEED + 66)
+        model, optimizer, _ = engine.setup_training(c, dev)
+        load_pretrained_backbone(model, str(path))
+        loaded(model, state, name)
+        req = make_synthetic_batch(c, 1, rng=np.random.RandomState(SEED + 67))
+        sbatch = to_device(make_synthetic_batch(
+            c, c.batch_size, rng=np.random.RandomState(SEED + 68)), dev)
+        reset_counts()
+        requests(Predictor(c, model, pad_to=2, device=dev), c, req, name)
+        ms, peak = timed_steps(model, optimizer, c, sbatch, 2)
+        sync()
+        expect, how = derived_counts(c, 2, c.num_frames,
+                                     7 if on_card else 1, c.num_frames,
+                                     eval_batch=2)
+        check_counts(name, read_counts(), expect,
+                     how + "; 1-clip requests at pad_to=2, then 2 steps")
+        numbers[f"{name}_step_ms"] = ms[-1]
+        numbers[f"{name}_peak_gib"] = peak
+        log(f"[backbones] {name} under the flagship head ({VH}x{VW}, map "
+            f"{omap} x {BACKBONE_CHANNELS[name]}): 2 steps at batch "
+            f"{c.batch_size}, T={c.num_frames}: "
+            f"{', '.join(f'{v:.1f}' for v in ms)} ms (host clock, "
+            f"synchronized); peak device memory {peak:.2f} GiB, in "
+            f"{time.time() - t0:.2f} s [{smi}]")
+        del model, optimizer, sbatch
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # -- (d) the card against the CPU at a small geometry ---------------------
+    if on_card:
+        SH, SW = small
+        for name in ("vgg19", "res50", "alex", "inv3"):
+            t0 = time.time()
+            maps = backbone_maps(name, SH, SW)
+            if name == "inv3":
+                sc = PRESETS["collective_stage1"]().replace(
+                    out_size=maps[0], batch_size=2, test_batch_size=2)
+                short = "collective_stage1"
+            else:
+                sc = PRESETS["volleyball_stage2_dynamic"]().replace(
+                    backbone=name, out_size=maps[0],
+                    emb_features=BACKBONE_CHANNELS[name],
+                    load_backbone_stage2=False)
+                short = name
+            sc = sc.replace(image_size=(SH, SW), num_frames=3,
+                            compute_dtype="float32", train_dropout_prob=0.0)
+            cpu_model = build_model(sc, device="cpu",
+                                    generator=torch.Generator().manual_seed(
+                                        SEED))
+            n_fixed = _zero_fixed_dropouts(cpu_model)
+            clip = cad_request(sc, 2, [13, 7], SEED + 69) \
+                if sc.dataset_name == "collective" else \
+                make_synthetic_batch(sc, 2, rng=np.random.RandomState(
+                    SEED + 69))
+            bn = BACKBONE_HAS_BN[name]
+            # BatchNorm backbones as phases 9 and 12 (Adam's largest step
+            # plus 2 f32 ulps; running statistics within 1e-4), the others
+            # with the VGG-16 paths' bounds
+            numbers[f"{short}_card_vs_cpu"] = card_vs_cpu(
+                short, sc, cpu_model, clip, n_fixed, ulps=2 if bn else 0,
+                stats_rtol=1e-4 if bn else None)
+            del cpu_model
+            torch.cuda.empty_cache()
+            log(f"[backbones] {short} card against CPU at {SH}x{SW} in "
+                f"{time.time() - t0:.2f} s")
+    log(f"[backbones] done in {time.time() - t_all:.2f} s [{smi}]")
+    return dict(counts=counts, kernels=kernels, numbers=numbers)
+
+
 def derived_counts(c, steps: int, step_T: int, eval_calls: int,
                    eval_T: int, eval_batch=None):
     """Launches of ``steps`` training steps of clips of ``step_T`` frames
@@ -2261,9 +2690,12 @@ def derived_counts(c, steps: int, step_T: int, eval_calls: int,
     call's ``pad_to``) clips of ``eval_T`` frames (no gradient: the fused
     stem and 4 pools per chunk), chunked by ``auto_chunk``; and how.  The
     DIN variants (hierarchical, multi, TCE) run the flagship's trunk, so
-    their launches are its.  ResNet-18 has no 2x2 pool and no VGG stem: one
-    RoIAlign forward per call, one backward per step when the backbone
-    trains (none with it frozen: ARG), whatever the chunks."""
+    their launches are its, and VGG-19's are VGG-16's.  The other backbones
+    (ResNet-18 and -50, Inception-v3, AlexNet) have no 2x2 pool and no VGG
+    stem: one RoIAlign forward per call, one backward per step when the
+    backbone trains (none with it frozen: ARG), whatever the chunks, where
+    a map of the backbone is ``out_size`` (Inception-v3's other map, and a
+    map of any other size, goes through the composed rows: no kernel)."""
     from din_tpu_torch.models.trunk import auto_chunk
 
     H, W = c.image_size
@@ -2273,16 +2705,18 @@ def derived_counts(c, steps: int, step_T: int, eval_calls: int,
     eval_frames = (eval_batch or c.test_batch_size) * eval_T
     eval_chunks = eval_frames // auto_chunk(
         eval_frames, H, W, c.frame_chunk, c.train_backbone)
-    if c.backbone == "res18":
-        bwd = steps if c.train_backbone else 0
-        return ({"max_pool_2x2": 0, "roi_align": steps + eval_calls,
+    if c.backbone not in ("vgg16", "vgg19"):
+        k1 = int(tuple(c.out_size) in backbone_maps(c.backbone, H, W))
+        bwd = steps * k1 if c.train_backbone else 0
+        return ({"max_pool_2x2": 0, "roi_align": k1 * (steps + eval_calls),
                  "max_pool_2x2_bwd": 0, "roi_align_bwd": bwd,
                  "fused_stem": 0},
-                "ResNet-18: per step 1 RoIAlign forward"
+                f"{c.backbone}: per step {k1} RoIAlign forward"
                 + (" and backward" if c.train_backbone
                    else " (frozen backbone: no backward)")
-                + f" on the map of {step_chunks} backbone chunk(s) of "
-                f"{step_frames // step_chunks} frames; per eval call 1 "
+                + f" on the map of out_size {tuple(c.out_size)} of "
+                f"{step_chunks} backbone chunk(s) of "
+                f"{step_frames // step_chunks} frames; per eval call {k1} "
                 f"RoIAlign on {eval_chunks} chunk(s) of "
                 f"{eval_frames // eval_chunks} frames; no 2x2 pool, no VGG "
                 f"stem")
@@ -2798,7 +3232,7 @@ def main() -> int:
     variants_s1 = run_root / "variants_stage1.pth"
     with tempfile.TemporaryDirectory(dir=run_root) as tmp:
         vgg_path = str(Path(tmp) / "vgg16_pretrained.pth")
-        vgg_state = write_vgg16_file(vgg_path, SEED + 5)
+        vgg_state = write_torchvision_file(vgg_path, "vgg16", SEED + 5)
         s1_argv = ["--preset", "volleyball_stage1", "--data-path",
                    "synthetic", "--max-epoch", "1", "--result-root", tmp,
                    "--exp-name", "stage1", "--pretrained-backbone-path",
@@ -2848,16 +3282,11 @@ def main() -> int:
             Path(tmp) / "stage1" / "log.txt").read_text(),
             "stage 1 did not start from the pretrained backbone")
         model, optimizer, _ = setup_training(s1cfg)
-        feats = model.backbone.features.state_dict()
-        require(sorted(feats) == sorted(k[len("features."):] for k in vgg_state
-                                        if k.startswith("features."))
-                and all(torch.equal(v.cpu(), vgg_state["features." + k])
-                        for k, v in feats.items()),
-                "the pretrained backbone differs from the file's tensors")
+        unused = check_loaded(model, vgg_state, "vgg16")
         log(f"[stage1] --pretrained-backbone-path: train_net started from a "
             f"torchvision-layout VGG-16 file the smoke wrote; setup_training "
-            f"loads its {len(feats)} features.* tensors equal to the file's, "
-            f"classifier.* unused")
+            f"loads its {len(model.backbone.state_dict())} features.* "
+            f"tensors equal to the file's; unused: {', '.join(unused)}")
         s1batch = to_device(make_synthetic_batch(
             s1cfg, s1cfg.batch_size, rng=np.random.RandomState(SEED + 3)),
             dev)
@@ -3360,6 +3789,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=run_root) as tmp:
         baseline_run = baselines_path(dev, Path(tmp), smi, reset_counts,
                                       read_counts)
+
+    # -- 13. Inception-v3, VGG-19, ResNet-50 and AlexNet ---------------------
+    with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        backbone_run = backbones_path(dev, Path(tmp), smi, reset_counts,
+                                      read_counts)
     log(f"[total] {time.time() - t_all:.1f} s")
 
     def launches(name):
@@ -3376,7 +3810,9 @@ def main() -> int:
                                      **{path: c[name] for path, c in
                                         variant_run["counts"].items()},
                                      **{path: c[name] for path, c in
-                                        baseline_run["counts"].items()}}}
+                                        baseline_run["counts"].items()},
+                                     **{path: c[name] for path, c in
+                                        backbone_run["counts"].items()}}}
 
     def baseline_shapes(kernel):
         return {f"{k[0]}x{k[1]}": {
@@ -3385,6 +3821,17 @@ def main() -> int:
             "ms": t[kernel + "_ms"], "plain_ms": t[kernel + "_plain"],
             "bound_ms": t[kernel + "_bound"]}
             for k, t in base_times.items()}
+
+    def backbone_shapes(kernel):
+        """K1's or K1b's errors and times at phase 13's maps."""
+        return {key: {
+            "shape": k["shape"], "boxes": k["boxes"],
+            "zero_padded": k["zero_padded"], "crop": [5, 5],
+            "max_abs_err": k["errs"][kernel + "_bf16"],
+            "ms": k["times"][kernel + "_ms"],
+            "plain_ms": k["times"][kernel + "_plain"],
+            "bound_ms": k["times"][kernel + "_bound"]}
+            for key, k in backbone_run["kernels"].items()}
 
     kernels = [
         {"name": "roi_align", "route": "cuda",
@@ -3398,7 +3845,8 @@ def main() -> int:
                         "ms": cad_times["k1_ms"],
                         "plain_ms": cad_times["k1_plain"],
                         "bound_ms": cad_times["k1_bound"]},
-         "baselines": baseline_shapes("k1")},
+         "baselines": baseline_shapes("k1"),
+         "backbones": backbone_shapes("k1")},
         {"name": "max_pool_2x2", "route": "cuda",
          "source": "din_tpu_torch/csrc/max_pool_2x2.cu",
          "replaces": "din_tpu/ops/pool.py:48", **launches("max_pool_2x2"),
@@ -3426,7 +3874,8 @@ def main() -> int:
                         "ms": cad_times["k1b_ms"],
                         "plain_ms": cad_times["k1b_plain"],
                         "bound_ms": cad_times["k1b_bound"]},
-         "baselines": baseline_shapes("k1b")},
+         "baselines": baseline_shapes("k1b"),
+         "backbones": backbone_shapes("k1b")},
         {"name": "fused_stem", "route": "cuda",
          "source": "din_tpu_torch/csrc/fused_stem.cu",
          "replaces": "din_tpu/ops/stem_kernel.py:68",

@@ -17,11 +17,17 @@ backbone="res18", out_size=(23, 40), emb_features=512)`` through
 a torchvision ResNet-18 file with ``pretrained_backbone_path``), as with
 din_tpu's Python API.
 
-``collective_stage1`` is Inception-v3, which comes with ROADMAP.md §1 item
-5: building its model raises until then.  A ResNet-18 stage 1 on the
-Collective Activity dataset, whose file ``collective_stage2_dynamic``
-grafts, is ``collective_stage1().replace(backbone="res18", out_size=(15,
-23), emb_features=512)``, as with din_tpu's Python API."""
+``collective_stage1`` is Inception-v3 (its 57x87 Mixed_5d and 28x43
+Mixed_6e maps at 480x720, pooled together: ``emb_features`` 1056); start
+it from a torchvision Inception-v3 file with ``pretrained_backbone_path``.
+A ResNet-18 stage 1 on the Collective Activity dataset, whose file
+``collective_stage2_dynamic`` grafts, is ``collective_stage1().replace(
+backbone="res18", out_size=(15, 23), emb_features=512)``, as with
+din_tpu's Python API.  Any preset takes another of din_tpu's backbones
+(``inv3``, ``vgg16``, ``vgg19``, ``res18``, ``res50``, ``alex``) with
+``out_size`` its map at the preset's image size and ``emb_features`` its
+channels; Inception-v3 at 720x1280 is the ``Config`` default, (87, 157)
+and 1056."""
 
 from __future__ import annotations
 

@@ -16,8 +16,8 @@ one stage-1 component file ``stage1_epoch{E}_{acc}%.pth`` (stage 1).
 stage 2 starts from (the flagship preset grafts one by default);
 ``--stage2-model-path`` resumes a stage-2 file instead (params, Adam state
 and epoch), as in the JAX package's run.py:78-83.  ``--pretrained-backbone-
-path`` starts stage 1 from a torchvision VGG-16 or ResNet-18 ``state_dict``
-file;
+path`` starts stage 1 from a torchvision ``state_dict`` file of the
+preset's backbone (Inception-v3, VGG-16/19, ResNet-18/50 or AlexNet);
 ``--ref-checkpoint-path`` grafts a ``.pth`` saved by the reference framework
 and ``--ref-resume-optimizer`` continues its training where it stopped
 (run.py:24-30,59-61).
@@ -36,8 +36,8 @@ test split and trains nothing (run.py:94-103):
         --preset volleyball_stage2_dynamic --data-path data/volleyball/videos \
         --stage2-model-path result/exp/stage2_epoch3_91.20%.pth --eval-only
 
-The Collective Activity path (ResNet-18, T=10, 13 actors): stage 1 is
-Inception-v3 in the presets (ROADMAP.md §1 item 5); a ResNet-18 stage 1 is
+The Collective Activity path (T=10, 13 actors): stage 1 is Inception-v3
+(``--preset collective_stage1``); stage 2 is ResNet-18, so its stage 1 is
 ``collective_stage1().replace(backbone="res18", out_size=(15, 23),
 emb_features=512)`` through ``train_net``, whose component file stage 2
 grafts:
@@ -75,7 +75,7 @@ def config_from_args(argv=None):
                         "+ 1")
     p.add_argument("--pretrained-backbone-path", default=None,
                    help="torchvision state_dict file for the backbone's "
-                        "ImageNet init (stage 1; VGG-16 or ResNet-18)")
+                        "ImageNet init (stage 1)")
     p.add_argument("--packed-frames-path", default=None,
                    help="store of decoded frames read in place of the JPEGs "
                         "(python -m din_tpu_torch.data.packed)")

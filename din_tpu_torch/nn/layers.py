@@ -3,9 +3,12 @@ din_tpu/nn/layers.py).
 
 ``torch_conv`` is ``nn.Conv2d`` itself, ``TorchLayerNorm(ndims)`` is
 ``nn.LayerNorm`` over the trailing dims, ``max_pool_torch(x, 2, 2)`` is
-``MaxPool2x2``, which goes through kernels K2 and K2b (the 3x3/s2 pool of
-ResNet is ``F.max_pool2d``: no Pallas kernel computes it), the flax
-``TorchBatchNorm`` is the ``nn.BatchNorm2d`` subclass of the same name, and
+``MaxPool2x2``, which goes through kernels K2 and K2b (the 3x3/s2 pools
+of ResNet, Inception-v3 and AlexNet are ``F.max_pool2d`` and
+``avg_pool_torch`` is ``nn/backbones.py`` ``avg_pool_3x3``: no Pallas
+kernel computes them), the flax ``TorchBatchNorm`` is the
+``nn.BatchNorm2d`` subclass of the same name (Inception-v3's with eps
+1e-3), and
 flax ``nn.Dropout`` is ``SeededDropout``.  The initialisers
 reproduce the JAX package's from a ``torch.Generator``: flax's default
 conv init (lecun normal, truncated), the reference's kaiming-normal Linear

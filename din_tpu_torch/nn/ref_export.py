@@ -15,8 +15,10 @@ heads as lines 132-195 and 256-295 write them (``_lstm``, ``_att_block``,
 ``fc_emb_1`` permuted from the JAX trunk's position-major RoI flatten to
 the reference's channel-major one (``_fc_emb_inv``, lines 212-218).  Keys are the
 reference's, which are the port's module names: ``backbone.features.N``
-(ResNet-18: ``features.0``/``features.1`` for conv1/bn1 and
-``features.4``-``features.7`` for layer1-4, ``RESNET_SEQ``), ``fc_emb_1``,
+(ResNet-18 and -50: ``features.0``/``features.1`` for conv1/bn1 and
+``features.4``-``features.7`` for layer1-4, ``RESNET_SEQ``; Inception-v3:
+``backbone.Conv2d_1a_3x3.conv`` ... ``backbone.Mixed_6e.branch_pool.bn``
+with its BatchNorm ``batch_stats``), ``fc_emb_1``,
 ``nl_emb_1``, ``point_conv``, ``point_ln``, ``DPI.DIMlist.{i}.*`` (the
 collective model's one field: ``DPI.*``; the hierarchical head:
 ``DPI.DPI_1.*``, ``DPI.hier_LN.*``, ``DPI.DPI_2.*``), ``dpi_nl``,
@@ -151,19 +153,22 @@ def _cib(params, stats, prefix, out):
 
 
 def _module_key(path, backbone: str) -> str:
-    """flax module names -> torch key prefix (ref_export.py:42-64): a
+    """flax module names -> torch key prefix (ref_export.py:42-66): a
     numeric part joins its parent with '.' (``features_3`` ->
     ``features.3``, ``layer1_0`` -> ``layer1.0``, ``downsample_1`` ->
-    ``downsample.1``); ResNet's stages sit in the reference's Sequential."""
+    ``downsample.1``), but Inception-v3's names keep their literal
+    underscores (``Mixed_6e``, ``branch7x7dbl_5`` are torchvision's own);
+    ResNet's stages sit in the reference's Sequential."""
     segs = []
     for comp in path:
         parts = comp.split("_")
         seg = parts[0]
         for p in parts[1:]:
-            seg += ("." + p) if p.isdigit() else ("_" + p)
+            merge = p.isdigit() and backbone != "inv3"
+            seg += ("." + p) if merge else ("_" + p)
         segs.append(seg)
     key = ".".join(segs)
-    if backbone == "res18":
+    if backbone in ("res18", "res50"):
         head, _, rest = key.partition(".")
         if head in RESNET_SEQ:
             key = RESNET_SEQ[head] + ("." + rest if rest else "")

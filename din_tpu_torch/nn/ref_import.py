@@ -54,7 +54,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from din_tpu_torch.nn.backbones import BACKBONE_ITEM, RESNET_SEQ
+from din_tpu_torch.nn.backbones import BACKBONES, RESNET_SEQ
 
 _BUFFER_SUFFIXES = ("running_mean", "running_var", "num_batches_tracked")
 _LSTM_BIAS = re.compile(r"\.bias_(ih|hh)_l0(_reverse)?$")
@@ -203,30 +203,37 @@ def load_reference_optimizer(model: torch.nn.Module,
     return epoch
 
 
-def load_pretrained_backbone(model: torch.nn.Module, path: str,
-                             backbone: str) -> None:
+def load_pretrained_backbone(model: torch.nn.Module, path: str) -> None:
     """Loads a torchvision-layout ``state_dict`` file (bare, or under
-    ``'state_dict'``) into ``model.backbone`` in place, strictly: VGG-16's
-    ``features.*`` into ``backbone.features`` (``classifier.*`` unused);
-    ResNet-18's ``conv1``, ``bn1`` and ``layer1``-``layer4`` into
-    ``features.0``, ``.1`` and ``.4``-``.7``, BatchNorm statistics
-    included (``fc.*`` unused).  Another backbone raises."""
-    if backbone not in ("vgg16", "res18"):
-        item = BACKBONE_ITEM.get(backbone)
-        raise NotImplementedError(
-            f"pretrained {backbone!r} weights: vgg16 and res18 are ported"
-            + (f"; {backbone} comes with ROADMAP.md §1 item {item}"
-               if item else ""))
+    ``'state_dict'``) of the model's backbone into ``model.backbone`` in
+    place, strictly over the backbone's own modules, BatchNorm statistics
+    included, as din_tpu/nn/torch_port.py ``convert_backbone_state`` reads
+    it (lines 35-111): VGG-16's, VGG-19's and AlexNet's ``features.*``
+    (``classifier.*`` unused); ResNet-18's and ResNet-50's ``conv1``,
+    ``bn1`` and ``layer1``-``layer4`` into ``features.0``, ``.1`` and
+    ``.4``-``.7`` (``fc.*`` unused); Inception-v3's ``Conv2d_1a_3x3``
+    through ``Mixed_6e`` (``AuxLogits.*``, ``Mixed_7a``-``Mixed_7c`` and
+    ``fc.*`` unused; torchvision's ``transform_input`` is not applied,
+    as din_tpu applies none).  A tensor of those modules that the file
+    lacks, has besides or has in another shape raises; so does a model
+    whose backbone is none of ``BACKBONES``."""
+    names = [k for k, cls in BACKBONES.items()
+             if type(model.backbone) is cls]
+    if not names:
+        raise ValueError(f"a backbone of type "
+                         f"{type(model.backbone).__name__} is none of "
+                         f"{sorted(BACKBONES)}")
     state = _read(path)
     if "state_dict" in state:
         state = state["state_dict"]
-    if backbone == "res18":        # din_tpu/nn/torch_port.py:46-61
+    if names[0] in ("res18", "res50"):     # din_tpu/nn/torch_port.py:46-61
         renamed = {}
         for k, v in state.items():
             head, _, rest = k.partition(".")
             if head in RESNET_SEQ:
                 renamed[f"{RESNET_SEQ[head]}.{rest}"] = v
         state = renamed
-    model.backbone.features.load_state_dict(
-        {k[len("features."):]: v for k, v in state.items()
-         if k.startswith("features.")}, strict=True)
+    own = {name for name, _ in model.backbone.named_children()}
+    model.backbone.load_state_dict(
+        {k: v for k, v in state.items() if k.partition(".")[0] in own},
+        strict=True)

@@ -35,6 +35,14 @@ equals the plain version run on the CPU bit for bit
 
 ``roi_align`` and ``roi_align_bwd`` on CPU tensors run the plain versions;
 on CUDA tensors they launch the kernels or raise.
+
+``roi_align_multiscale`` (din_tpu/ops/roi_align.py:149-189) pools boxes of
+an (OH, OW) map from backbone maps of other sizes (Inception-v3's two
+scales) without resizing them: a map of size (OH, OW) goes through
+``roi_align`` (K1, K1b), every other one through the align-corners resize
+rows composed into the crop's interpolation rows (``_interp_rows``) and two
+batched products, which din_tpu computes with einsums outside any Pallas
+kernel; autograd differentiates them.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from typing import Tuple
 import torch
 
 from din_tpu_torch.ops import native
+from din_tpu_torch.ops.image import interp_matrix_align_corners
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
@@ -241,3 +250,55 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor,
 roi_align.launches = 0
 roi_align_bwd.launches = 0
 roi_align_bwd.g_copies = 0
+
+
+def _interp_rows(boxes: torch.Tensor, crop_size: Tuple[int, int], H: int,
+                 W: int):
+    """Per-axis interpolation rows of RoIAlign in float32
+    (din_tpu/ops/roi_align.py:113-134): (My [B,N,KH,H], Mx [B,N,KW,W]) with
+    the crop equal to ``einsum('bnhH,bnwW,bHWc->bnhwc', My, Mx,
+    features)``; a sample out of range on an axis has a zero row there
+    (``_corner_weights``'s rule, the kernels' too)."""
+    ys, xs = _sample_grid(boxes, crop_size)
+
+    def axis_matrix(coord, limit):
+        lo, hi, w_lo, w_hi, ok = _corner_weights(coord, limit)
+        grid = torch.arange(limit, device=coord.device)
+        m = (lo[..., None] == grid) * w_lo[..., None] \
+            + (hi[..., None] == grid) * w_hi[..., None]
+        return m * ok[..., None]
+
+    return axis_matrix(ys, H), axis_matrix(xs, W)
+
+
+def roi_align_multiscale(feature_maps, boxes: torch.Tensor,
+                         crop_size: Tuple[int, int],
+                         out_size: Tuple[int, int]) -> torch.Tensor:
+    """RoIAlign of ``boxes`` [B,N,4] (feature pixels of an (OH, OW) map)
+    over the channel concatenation of every map of ``feature_maps`` (each
+    [B,h,w,C_s]) resized to (OH, OW) with align corners, without resizing
+    any: equal to ``roi_align(cat([resize(o, out_size) for o in maps]),
+    boxes)``.  A map of size (OH, OW) goes through ``roi_align``; for any
+    other the crop rows [KH, OH] and the resize rows [OH, h] are multiplied
+    in float32 and cast to the map's dtype before two batched products with
+    the map.  Returns [B,N,KH,KW,sum(C_s)] in the maps' dtype, in the order
+    of ``feature_maps``."""
+    OH, OW = out_size
+    crop_size = tuple(crop_size)
+    boxes = boxes.detach().float()
+    my = mx = None
+    parts = []
+    for o in feature_maps:
+        h, w = o.shape[1:3]
+        if (h, w) == (OH, OW):
+            parts.append(roi_align(o, boxes, crop_size))
+            continue
+        if my is None:
+            my, mx = _interp_rows(boxes, crop_size, OH, OW)
+        ry = interp_matrix_align_corners(h, OH, torch.float32, o.device)
+        rx = interp_matrix_align_corners(w, OW, torch.float32, o.device)
+        myc = torch.einsum("bnko,oh->bnkh", my, ry).to(o.dtype)
+        mxc = torch.einsum("bnkp,pw->bnkw", mx, rx).to(o.dtype)
+        t = torch.einsum("bnhH,bHWc->bnhWc", myc, o)
+        parts.append(torch.einsum("bnwW,bnhWc->bnhwc", mxc, t).to(o.dtype))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)

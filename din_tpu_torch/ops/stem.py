@@ -8,7 +8,8 @@ overlapping DMA'd row tiles, all for the TPU's 128 lanes; here the map is
 the canonical NHWC frame map and the pool is in floor mode, as K2.
 
 Forward only, as in the JAX package, whose backward is the unfused stem
-(din_tpu/nn/stem.py): ``VGG16Backbone`` takes this route wherever autograd
+(din_tpu/nn/stem.py): VGG-16 and VGG-19 (``nn/backbones.py`` ``_VGG``,
+whose first five layers are the same) take this route wherever autograd
 needs none of the stem's intermediates (serving, eval, a frozen backbone).
 
 Semantics, fixed by ``fused_stem_ref`` and held by the kernel: each conv

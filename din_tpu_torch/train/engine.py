@@ -149,8 +149,7 @@ def setup_training(cfg, device=None):
         else:
             print_log(cfg.log_path, "Not loading stage1 or stage2 model.")
     elif cfg.pretrained_backbone_path:
-        load_pretrained_backbone(model, cfg.pretrained_backbone_path,
-                                 cfg.backbone)
+        load_pretrained_backbone(model, cfg.pretrained_backbone_path)
         print_log(cfg.log_path, "Loaded pretrained backbone: "
                   + cfg.pretrained_backbone_path)
     if cfg.ref_checkpoint_path and cfg.ref_resume_optimizer:

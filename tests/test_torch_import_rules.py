@@ -109,16 +109,22 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
 
 
 def test_unported_models_name_their_roadmap_slice():
-    """The baselines of ROADMAP.md §1 item 4 build; a backbone still to
-    port names the item that brings it."""
+    """The baselines of ROADMAP.md §1 item 4 build, and so does every
+    backbone of din_tpu's ``BACKBONES`` (items 5 and 6: nothing is left
+    unported); a backbone din_tpu does not know raises and lists the
+    known ones."""
     from din_tpu_torch.models.registry import STAGE2_MODELS, build_model
+    from din_tpu_torch.nn.backbones import BACKBONES
 
     cfg = _tiny_cfg()
     for name in ("at_volleyball", "higcin_volleyball"):
         model = build_model(cfg.replace(inference_module_name=name),
                             device="cpu")
         assert type(model) is STAGE2_MODELS[name]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        build_model(cfg.replace(backbone="inv3"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-        build_model(cfg.replace(backbone="vgg19"), device="cpu")
+    names = ("inv3", "vgg16", "vgg19", "res18", "res50", "alex")
+    assert sorted(BACKBONES) == sorted(names)
+    for name in ("inv3", "vgg19"):
+        model = build_model(cfg.replace(backbone=name), device="cpu")
+        assert type(model.backbone) is BACKBONES[name]
+    with pytest.raises(ValueError, match="choose from .*'inv3'"):
+        build_model(cfg.replace(backbone="alexnet"), device="cpu")

@@ -325,8 +325,9 @@ def test_pretrained_vgg16_file_gives_jax_backbone_output(tmp_path, layout):
     (stage 1): backbone.features equal the file's tensors, and the
     backbone's output on frames in [-1, 1] equals din_tpu's VGG-16 after
     ``convert_backbone_state`` of the same file (canonical stem) within
-    rtol 1e-4 / atol 1e-5 (float32 summation order).  Another backbone
-    raises and names its ROADMAP item."""
+    rtol 1e-4 / atol 1e-5 (float32 summation order).  The file loaded into
+    a model of another backbone (Inception-v3) raises, and a backbone name
+    din_tpu does not know raises when the model is built."""
     path = str(tmp_path / "vgg16.pth")
     state = _vgg16_file(path, layout == "under_state_dict")
     cfg = PRESETS["volleyball_stage1"]().replace(
@@ -346,8 +347,11 @@ def test_pretrained_vgg16_file_gives_jax_backbone_output(tmp_path, layout):
         got = model.backbone(torch.from_numpy(x)).numpy()
     assert got.shape == ref.shape == (2, 2, 3, 512)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_pretrained_backbone(model, path, "inv3")
+    with pytest.raises(RuntimeError, match="Missing key"):
+        load_pretrained_backbone(build_model(cfg.replace(backbone="inv3"),
+                                             device="cpu"), path)
+    with pytest.raises(ValueError, match="choose from"):
+        build_model(cfg.replace(backbone="vgg11"), device="cpu")
 
 
 def test_run_cli_with_the_three_new_flags(case, tmp_path, monkeypatch):

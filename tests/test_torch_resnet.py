@@ -33,6 +33,7 @@ from din_tpu.nn.backbones import ResNet18Backbone as JaxRes18
 from din_tpu.nn.layers import TorchBatchNorm as JaxBatchNorm
 from din_tpu.nn.torch_port import convert_backbone_state, torch_file_to_numpy
 from din_tpu_torch.experiments.presets import PRESETS
+from din_tpu_torch.models.registry import build_model
 from din_tpu_torch.models.trunk import trunk_forward
 from din_tpu_torch.nn.backbones import RESNET_SEQ, ResNet18Backbone
 from din_tpu_torch.nn.layers import TorchBatchNorm
@@ -321,8 +322,9 @@ def test_torchvision_resnet18_file_loads_strictly_and_matches_jax(tmp_path):
     ``backbone.features`` tensor, BatchNorm statistics included, equals the
     file's (``fc.*`` unused), and the eval-mode map equals din_tpu's
     ResNet-18 after ``convert_backbone_state`` of the same file within rtol
-    1e-4 / atol 1e-5 max|y|.  Another backbone still raises and names its
-    ROADMAP item."""
+    1e-4 / atol 1e-5 max|y|.  The file loaded into a model of another
+    backbone (Inception-v3) raises, and a backbone name din_tpu does not
+    know raises when the model is built."""
     path = str(tmp_path / "resnet18.pth")
     state = torchvision_res18_file(path)
     cfg = PRESETS["collective_stage1"]().replace(
@@ -349,5 +351,8 @@ def test_torchvision_resnet18_file_loads_strictly_and_matches_jax(tmp_path):
     ref = np.asarray(ref)
     np.testing.assert_allclose(got, ref, rtol=1e-4,
                                atol=1e-5 * np.abs(ref).max())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_pretrained_backbone(model, path, "inv3")
+    with pytest.raises(RuntimeError, match="Missing key"):
+        load_pretrained_backbone(build_model(cfg.replace(backbone="inv3"),
+                                             device="cpu"), path)
+    with pytest.raises(ValueError, match="choose from"):
+        build_model(cfg.replace(backbone="res34"), device="cpu")
