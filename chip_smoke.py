@@ -193,7 +193,22 @@ Phases, each timed, any failure exits non-zero:
    helper; the BatchNorm backbones with Adam's largest step plus 2 f32
    ulps and running statistics within 1e-4, VGG-19 and AlexNet with the
    VGG-16 paths' bounds); launch counts of every path against
-   ``derived_counts``.
+   ``derived_counts``;
+14. the serving artifact (``experiments/export_serving.py``): phase 4's
+   trained flagship ``.pth`` through ``Predictor.from_checkpoint(pad_to=2)``
+   and a collective ``DynamicCollective`` (ResNet-18 from a
+   torchvision-layout file with BatchNorm statistics, random DIN convs,
+   480x720, T=10, 13 slots, ``bboxes_num``) exported by ``export_predictor`` at batch 2 (the
+   export time, the file size, the header); a fresh interpreter loads both
+   files with no module of ``din_tpu_torch.models``, ``heads``, ``nn`` or
+   ``train`` (it exits non-zero otherwise), launches the kernels of one
+   1-clip call (equal to the live call's and to ``derived_counts``: K3 4,
+   K2 16, K1 1 for the flagship, K1 1 for the collective model), answers
+   1-, 2- and 3-clip requests with the default flags and again with
+   ``cudnn.allow_tf32 = True`` set (each within 1e-5 of the live
+   Predictor's posteriors), and once without the program's IEEE f32
+   context (reported); then the median of six 1-clip requests through the
+   artifact beside the live Predictor's, in turns.
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -202,6 +217,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -2682,6 +2698,198 @@ def backbones_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
     return dict(counts=counts, kernels=kernels, numbers=numbers)
 
 
+_ARTIFACT_CHILD = r"""
+import contextlib, json, sys, time
+import numpy as np
+import torch
+from din_tpu_torch.experiments import export_serving
+from din_tpu_torch.ops.pool import max_pool_2x2, max_pool_2x2_bwd
+from din_tpu_torch.ops.roi_align import roi_align, roi_align_bwd
+from din_tpu_torch.ops.stem import fused_stem
+
+device, out_path, jobs = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+wrappers = {"roi_align": roi_align, "max_pool_2x2": max_pool_2x2,
+            "max_pool_2x2_bwd": max_pool_2x2_bwd,
+            "roi_align_bwd": roi_align_bwd, "fused_stem": fused_stem}
+sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+report, arrays = {"allow_tf32_default": torch.backends.cudnn.allow_tf32}, {}
+for name, artifact, request in jobs:
+    t = time.time()
+    served = export_serving.ExportedPredictor.load(artifact, device=device)
+    sync()
+    load_s = time.time() - t
+    req = np.load(request)
+
+    def ask(n):
+        return served(*(req[k][:n] for k in ("images", "boxes", "bboxes_num")
+                        if k in req))
+
+    for w in wrappers.values():
+        w.launches = 0
+    ask(1)
+    sync()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    sizes = range(1, len(req["images"]) + 1)
+    answers = {f"default/{n}": ask(n) for n in sizes}
+    saved = torch.backends.cudnn.allow_tf32
+    repaired = export_serving.ieee_f32_convs
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        answers.update({f"tf32/{n}": ask(n) for n in sizes})
+        # the program called without its IEEE context, as the trap would
+        export_serving.ieee_f32_convs = contextlib.nullcontext
+        answers["unrepaired/2"] = ask(2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+        export_serving.ieee_f32_convs = repaired
+    for key, out in answers.items():
+        for k, v in out.items():
+            arrays[f"{name}/{key}/{k}"] = v
+    report[name] = {"load_s": load_s, "counts": counts}
+report["model_modules"] = sorted(
+    m for m in sys.modules if m.split(".")[0] == "din_tpu_torch"
+    and m.split(".")[1:2] in (["models"], ["heads"], ["nn"], ["train"]))
+if report["model_modules"]:
+    sys.exit("model code imported: " + ", ".join(report["model_modules"]))
+np.savez(out_path, **arrays)
+print(json.dumps(report))
+"""
+
+
+def export_path(dev, tmp: Path, ckpt: str, smi: str, reset_counts,
+                read_counts, shrink=lambda c: c) -> dict:
+    """Phase 14: the serving artifact (see the module docstring).
+    ``shrink`` sizes the configs down for a rehearsal on the CPU, where no
+    kernel launches and the counts and times are not taken.  Returns the
+    launch counts of one exported 1-clip call of each artifact and the
+    measured numbers."""
+    from din_tpu_torch.data.synthetic import make_synthetic_batch
+    from din_tpu_torch.experiments import export_serving
+    from din_tpu_torch.experiments.export_serving import (ExportedPredictor,
+                                                          export_predictor)
+    from din_tpu_torch.experiments.predict import Predictor
+    from din_tpu_torch.experiments.presets import PRESETS
+    from din_tpu_torch.nn.ref_import import load_pretrained_backbone
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_all = time.time()
+    fcfg = shrink(PRESETS["volleyball_stage2_dynamic"]())
+    ccfg = shrink(PRESETS["collective_stage2_dynamic"]())
+    flagship = Predictor.from_checkpoint(fcfg, ckpt, pad_to=2, device=dev)
+    collective = Predictor.from_checkpoint(ccfg, None, pad_to=2, device=dev)
+    res18 = tmp / "resnet18.pth"
+    write_torchvision_file(str(res18), "res18", SEED + 141)
+    load_pretrained_backbone(collective.model, str(res18))
+    # its DIN convs away from 0, where TF32 would move the answer
+    _randomize_din(collective.model, torch.Generator().manual_seed(SEED + 144))
+    fb = make_synthetic_batch(fcfg, 3, rng=np.random.RandomState(SEED + 142))
+    cases = {
+        "flagship": (fcfg, flagship, {"images": fb["images"],
+                                      "boxes": fb["boxes"]}),
+        "collective": (ccfg, collective, {
+            k: v for k, v in cad_request(ccfg, 3, (13, 1, 7),
+                                         SEED + 143).items()
+            if k in ("images", "boxes", "bboxes_num")})}
+    counts, numbers, jobs, live = {}, {}, [], {}
+    for name, (c, predictor, req) in cases.items():
+        tt = time.time()
+        data = export_predictor(predictor)
+        export_s = time.time() - tt
+        path = tmp / f"{name}.pt2"
+        path.write_bytes(data)
+        np.savez(tmp / f"{name}_request.npz", **req)
+        jobs.append([name, str(path), str(tmp / f"{name}_request.npz")])
+        header = export_serving.read_header(data)
+        require(header["batch"] == 2 and header["device"] == dev.type,
+                f"{name}: header {header}")
+        numbers[name] = dict(export_s=export_s, mb=len(data) / 1e6)
+        log(f"[export] {name} ({c.backbone}, {c.image_size[0]}x"
+            f"{c.image_size[1]}, T={c.num_frames}, N={c.num_boxes}): "
+            f"export_predictor at batch 2 in {export_s:.2f} s (host clock), "
+            f"file {len(data) / 1e6:.1f} MB; header {json.dumps(header)}")
+        n_clips = len(req["images"])
+        reset_counts()
+        keys = [k for k in ("images", "boxes", "bboxes_num") if k in req]
+        predictor(*(req[k][:1] for k in keys))
+        sync()
+        live_counts = read_counts()
+        live[name] = {n: predictor(*(req[k][:n] for k in keys))
+                      for n in range(1, n_clips + 1)}
+        expect, how = derived_counts(c, 0, c.num_frames, 1, c.num_frames,
+                                     eval_batch=2)
+        counts[name] = dict(live=live_counts, expect=expect, how=how)
+    # a fresh interpreter loads both files with no model code and answers
+    child = subprocess.run(
+        [sys.executable, "-c", _ARTIFACT_CHILD, dev.type,
+         str(tmp / "answers.npz"), json.dumps(jobs)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    require(child.returncode == 0, f"the artifact's interpreter failed "
+            f"({child.returncode}):\n{child.stderr[-4000:]}")
+    report = json.loads(child.stdout.strip().splitlines()[-1])
+    answers = np.load(tmp / "answers.npz")
+    log(f"[export] a fresh interpreter loaded both files with no module of "
+        f"din_tpu_torch.models, heads, nn or train ({report['model_modules']}"
+        f"); cudnn.allow_tf32 there by default: "
+        f"{report['allow_tf32_default']}")
+    gaps = {}
+    for name, by_n in live.items():
+        got = report[name]["counts"]
+        want = counts[name]
+        log(f"[export] {name}: one exported 1-clip call launched {got}; the "
+            f"live call {want['live']}; derived {want['expect']} "
+            f"({want['how']}); loaded in {report[name]['load_s']:.2f} s")
+        require(not on_card or got == want["live"] == want["expect"],
+                f"{name}: the exported call's launch counts are off")
+        counts[name] = got
+        for flags in ("default", "tf32"):
+            gaps[f"{name}_{flags}"] = max(
+                float(np.abs(answers[f"{name}/{flags}/{n}/{k}"] - v).max())
+                for n, out in by_n.items() for k, v in out.items())
+        unrepaired = max(float(np.abs(answers[f"{name}/unrepaired/2/{k}"]
+                                      - v).max())
+                         for k, v in by_n[2].items())
+        log(f"[export] {name}: the artifact's posteriors of the 1-, 2- and "
+            f"3-clip requests against the live Predictor.from_checkpoint's: "
+            f"max |diff| {gaps[name + '_default']:.3g} with the default "
+            f"flags, {gaps[name + '_tf32']:.3g} with cudnn.allow_tf32 = True "
+            f"set (<= 1e-5); the program called without its IEEE f32 "
+            f"context under TF32: {unrepaired:.3g} (not bounded)")
+        require(max(gaps[name + "_default"], gaps[name + "_tf32"]) <= 1e-5,
+                f"{name}: the artifact's posteriors differ from the live "
+                f"Predictor's")
+        numbers[name].update(gap_default=gaps[name + "_default"],
+                             gap_tf32=gaps[name + "_tf32"],
+                             gap_unrepaired=unrepaired)
+    # 1-clip requests through the artifact and the live Predictor, in turns
+    for name, (c, predictor, req) in cases.items():
+        served = ExportedPredictor.load(str(tmp / f"{name}.pt2"), device=dev)
+        graph = sorted(str(n.target) for n in served._module.graph.nodes
+                       if str(n.target).startswith("din_tpu_torch."))
+        keys = [k for k in ("images", "boxes", "bboxes_num") if k in req]
+        one = [req[k][:1] for k in keys]
+        times = {"live": [], "artifact": []}
+        for route in ("live", "artifact", "artifact", "live") * 3:
+            fn = predictor if route == "live" else served
+            times[route] += (time_host(lambda: fn(*one), 1) if on_card
+                             else [0.0])
+        numbers[name].update({f"{k}_ms": float(np.median(v))
+                              for k, v in times.items()})
+        log(f"[export] {name}: the program's kernel ops "
+            f"{dict(collections.Counter(graph))}; 1-clip requests, 6 each in "
+            f"turns (host clock, synchronized): artifact median "
+            f"{numbers[name]['artifact_ms']:.2f} ms (min "
+            f"{min(times['artifact']):.2f}, max {max(times['artifact']):.2f}),"
+            f" live median {numbers[name]['live_ms']:.2f} ms (min "
+            f"{min(times['live']):.2f}, max {max(times['live']):.2f}) "
+            f"[{smi}]")
+        del served
+    log(f"[export] done in {time.time() - t_all:.2f} s")
+    return dict(counts={f"export_{k}": v for k, v in counts.items()},
+                numbers=numbers)
+
+
 def derived_counts(c, steps: int, step_T: int, eval_calls: int,
                    eval_T: int, eval_batch=None):
     """Launches of ``steps`` training steps of clips of ``step_T`` frames
@@ -3226,8 +3434,10 @@ def main() -> int:
     run_root.mkdir(parents=True, exist_ok=True)
     disk_s1 = run_root / "ondisk_stage1.pth"
     # phase 10 serves phase 4's stage-2 file and its reference-ordered
-    # copy; phase 11 grafts the variants from its stage-1 file
+    # copy, phase 14 exports it; phase 11 grafts the variants from its
+    # stage-1 file
     serve_ckpt = run_root / "phase4_stage2.pth"
+    export_ckpt = run_root / "phase14_stage2.pth"
     serve_ref = run_root / "phase4_reference_order.pth"
     variants_s1 = run_root / "variants_stage1.pth"
     with tempfile.TemporaryDirectory(dir=run_root) as tmp:
@@ -3391,6 +3601,7 @@ def main() -> int:
         ref_path = str(Path(tmp) / "reference_order.pth")
         torch.save(ref, ref_path)
         shutil.copy(ckpt, serve_ckpt)
+        shutil.copy(ckpt, export_ckpt)
         shutil.copy(ref_path, serve_ref)
         del model, optimizer, state, ostate
         torch.cuda.empty_cache()
@@ -3794,6 +4005,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=run_root) as tmp:
         backbone_run = backbones_path(dev, Path(tmp), smi, reset_counts,
                                       read_counts)
+
+    # -- 14. the serving artifact -------------------------------------------
+    with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        ckpt_copy = shutil.move(export_ckpt, Path(tmp) / export_ckpt.name)
+        export_run = export_path(dev, Path(tmp), str(ckpt_copy), smi,
+                                 reset_counts, read_counts)
     log(f"[total] {time.time() - t_all:.1f} s")
 
     def launches(name):
@@ -3812,7 +4029,9 @@ def main() -> int:
                                      **{path: c[name] for path, c in
                                         baseline_run["counts"].items()},
                                      **{path: c[name] for path, c in
-                                        backbone_run["counts"].items()}}}
+                                        backbone_run["counts"].items()},
+                                     **{path: c[name] for path, c in
+                                        export_run["counts"].items()}}}
 
     def baseline_shapes(kernel):
         return {f"{k[0]}x{k[1]}": {

@@ -32,6 +32,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from din_tpu_torch.utils.device import resolve_device
+
 
 def chunked_padded_call(fwd, pad_to: int, images, boxes,
                         bboxes_num=None) -> Dict:
@@ -73,6 +75,14 @@ def chunked_padded_call(fwd, pad_to: int, images, boxes,
             for kk in chunks[0]}
 
 
+def posteriors(out: Dict) -> Dict:
+    """Softmax posteriors (float32) of a model's ``activities`` and, where
+    it has them, ``actions`` logits: what the live ``Predictor`` answers and
+    what an exported serving program returns."""
+    return {k: torch.softmax(out[k].float(), dim=-1)
+            for k in ("activities", "actions") if k in out}
+
+
 class Predictor:
     """Inference wrapper of a built model.
 
@@ -85,8 +95,6 @@ class Predictor:
 
     def __init__(self, cfg, model: torch.nn.Module,
                  pad_to: Optional[int] = None, device=None):
-        from din_tpu_torch.models.registry import resolve_device
-
         if pad_to is not None and pad_to < 1:
             raise ValueError(f"pad_to must be >= 1, got {pad_to}")
         self.cfg = cfg
@@ -123,9 +131,7 @@ class Predictor:
             bboxes_num = torch.from_numpy(np.ascontiguousarray(
                 bboxes_num, dtype=np.int32)).to(self.device)
         with torch.inference_mode():
-            out = self.model(images, boxes, bboxes_num)
-            res = {k: torch.softmax(out[k].float(), dim=-1)
-                   for k in ("activities", "actions") if k in out}
+            res = posteriors(self.model(images, boxes, bboxes_num))
         return {k: v.cpu().numpy() for k, v in res.items()}
 
     def __call__(self, images, boxes, bboxes_num=None) -> Dict:

@@ -21,6 +21,7 @@ from din_tpu_torch.models.baselines import (ARGVolleyball, ATVolleyball,
 from din_tpu_torch.models.dynamic import (DynamicCollective,
                                           DynamicTCEVolleyball,
                                           DynamicVolleyball)
+from din_tpu_torch.utils.device import resolve_device
 
 BASENET_MODELS = {"volleyball": BasenetVolleyball,
                   "collective": BasenetCollective}
@@ -34,15 +35,6 @@ STAGE2_MODELS = {"dynamic_volleyball": DynamicVolleyball,
                  "sacrf_biute_volleyball": SACRFBiUTEVolleyball,
                  "gcnnet_volleyball": GCNNetVolleyball,
                  "gcnnet_collective": GCNNetCollective}
-
-
-def resolve_device(device=None) -> torch.device:
-    """The port runs on the card unless the caller asks for the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; din_tpu_torch runs on the "
-                           "card and takes device='cpu' only when asked")
-    return device
 
 
 def build_model(cfg, device=None,

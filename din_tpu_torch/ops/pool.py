@@ -1,5 +1,7 @@
 """2x2 stride-2 max-pool on NHWC maps: kernels K2 (forward) and K2b
-(backward), their plain versions, and the autograd Function around them.
+(backward), their plain versions, and the custom ops
+``din_tpu_torch::max_pool_2x2`` and ``din_tpu_torch::max_pool_2x2_bwd``
+around them.
 
 Port of din_tpu/ops/pool.py.  The TPU kernels (``_fwd_kernel`` and
 ``_bwd_kernel``, launched by ``_pallas_fwd_call`` and ``_fp_bwd``) pooled a
@@ -13,12 +15,18 @@ The gradient goes to the first argmax of each window in row-major order, as
 the JAX custom VJP routes it (pool.py:57-74, and ``_fold_pool_xla``
 :143-150): within a row the first column wins a tie, between rows the first
 row.  Autograd of ``amax`` would split a tie evenly instead, and after ReLU
-and bf16 rounding ties are common, so the backward is its own Function on
-both routes; like the JAX VJP it saves the pool's input, not indices.
+and bf16 rounding ties are common, so the backward is its own op on both
+devices; like the JAX VJP the forward op's registered autograd saves the
+pool's input, not indices.
 
-``max_pool_2x2`` and ``max_pool_2x2_bwd`` on CPU tensors run the plain
-versions; on CUDA tensors they launch the hand-written kernels
-(csrc/max_pool_2x2.cu, csrc/max_pool_2x2_bwd.cu) or raise.
+Each op's CUDA implementation is its launcher (``_pool_fwd``,
+``max_pool_2x2_bwd``: csrc/max_pool_2x2.cu, csrc/max_pool_2x2_bwd.cu), its
+CPU implementation the plain version; no other device is registered, and
+the fake implementation gives the output's shape, dtype and strides (as
+``ops/roi_align.py`` explains).  Only a launcher counts.
+``max_pool_2x2`` on a CPU tensor runs the plain version; on a CUDA tensor
+it launches the kernel or raises; any other device raises.
+``max_pool_2x2_bwd`` called directly does the same.
 """
 
 from __future__ import annotations
@@ -65,8 +73,7 @@ def max_pool_2x2_bwd_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _pool_fwd(x: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return max_pool_2x2_ref(x)
+    """K2's launcher, the CUDA implementation of the op."""
     native.require_cuda_input(x, "x", _FLOAT_TYPES, 4)
     F, H, W, C = x.shape
     y = torch.empty((F, H // 2, W // 2, C), dtype=x.dtype, device=x.device)
@@ -82,7 +89,9 @@ def _pool_fwd(x: torch.Tensor) -> torch.Tensor:
 
 def max_pool_2x2_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Gradient of ``max_pool_2x2`` at x for the output gradient g
-    [F,H//2,W//2,C] -> [F,H,W,C] in g's dtype.  A CUDA g that is not NHWC-
+    [F,H//2,W//2,C] -> [F,H,W,C] in g's dtype.  K2b's launcher, the CUDA
+    implementation of ``din_tpu_torch::max_pool_2x2_bwd``; called directly,
+    a CPU x runs the plain version.  A CUDA g that is not NHWC-
     contiguous (a conv's dgrad may return another layout) is copied to it
     first, counted in ``max_pool_2x2_bwd.g_copies``.  Counts its kernel
     launches in ``max_pool_2x2_bwd.launches``."""
@@ -110,27 +119,48 @@ def max_pool_2x2_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dx
 
 
-class _MaxPool2x2(torch.autograd.Function):
-    """K2 forward, K2b backward; saves the input, as the JAX VJP does."""
+_pool_op = torch.library.custom_op(
+    "din_tpu_torch::max_pool_2x2", _pool_fwd, mutates_args=(),
+    device_types="cuda", schema="(Tensor x) -> Tensor")
+_pool_op.register_kernel("cpu", max_pool_2x2_ref)
+_pool_bwd_op = torch.library.custom_op(
+    "din_tpu_torch::max_pool_2x2_bwd", max_pool_2x2_bwd, mutates_args=(),
+    device_types="cuda", schema="(Tensor x, Tensor g) -> Tensor")
+_pool_bwd_op.register_kernel("cpu", max_pool_2x2_bwd_ref)
 
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return _pool_fwd(x)
 
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return max_pool_2x2_bwd(x, g)
+@_pool_op.register_fake
+def _(x):
+    F, H, W, C = x.shape
+    return x.new_empty((F, H // 2, W // 2, C))
+
+
+@_pool_bwd_op.register_fake
+def _(x, g):
+    return torch.empty_like(x, dtype=g.dtype,
+                            memory_format=torch.contiguous_format)
+
+
+def _pool_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0])
+
+
+def _pool_backward(ctx, g):
+    """K2b at the saved input."""
+    (x,) = ctx.saved_tensors
+    return torch.ops.din_tpu_torch.max_pool_2x2_bwd(x, g)
+
+
+_pool_op.register_autograd(_pool_backward, setup_context=_pool_setup)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2/2 max-pool of an NHWC map [F,H,W,C] (f32 or bf16) ->
     [F,H//2,W//2,C], differentiable with first-argmax routing.  Counts its
     forward kernel launches in ``max_pool_2x2.launches``."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _MaxPool2x2.apply(x)
-    return _pool_fwd(x)
+    if x.device.type != "cpu":
+        native.require_cuda_input(x, "x", _FLOAT_TYPES, 4)
+    return torch.ops.din_tpu_torch.max_pool_2x2(x)
 
 
 max_pool_2x2.launches = 0

@@ -1,6 +1,7 @@
 """RoIAlign (TF ``crop_and_resize`` with ``transform_fpcoor``): kernels K1
-(forward) and K1b (backward), their plain versions, and the autograd
-Function around them.
+(forward) and K1b (backward), their plain versions, and the custom ops
+``din_tpu_torch::roi_align`` and ``din_tpu_torch::roi_align_bwd`` around
+them.
 
 Port of din_tpu/ops/roi_align.py.  Semantics: boxes are
 (x1, y1, x2, y2) in feature-map pixels; the KH x KW samples land on bin
@@ -33,8 +34,17 @@ writes the result once in the output's dtype, so it is deterministic and
 equals the plain version run on the CPU bit for bit
 (tests/test_torch_roi_bwd_order.py emulates its loop).
 
-``roi_align`` and ``roi_align_bwd`` on CPU tensors run the plain versions;
-on CUDA tensors they launch the kernels or raise.
+Each kernel is a ``torch.library`` custom op, so that ``torch.export``
+records it as one node (``experiments/export_serving.py``): its CUDA
+implementation is the launcher (``_roi_align_fwd``, ``roi_align_bwd``), its
+CPU implementation the plain version, and no other device is registered;
+the fake implementation gives the output's shape, dtype and (contiguous)
+strides.  The forward op's registered autograd saves the boxes, the
+feature size and the dtype, and its backward is the K1b op.  Only a
+launcher counts (``roi_align.launches``, ``roi_align_bwd.launches``), so a
+trace counts nothing.  ``roi_align`` on a CPU tensor runs the plain
+version; on a CUDA tensor it launches the kernel or raises; any other
+device raises.  ``roi_align_bwd`` called directly does the same.
 
 ``roi_align_multiscale`` (din_tpu/ops/roi_align.py:149-189) pools boxes of
 an (OH, OW) map from backbone maps of other sizes (Inception-v3's two
@@ -47,7 +57,7 @@ kernel; autograd differentiates them.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -147,9 +157,8 @@ def roi_align_bwd_ref(g: torch.Tensor, boxes: torch.Tensor,
 
 
 def _roi_align_fwd(features: torch.Tensor, boxes: torch.Tensor,
-                   crop_size: Tuple[int, int]) -> torch.Tensor:
-    if features.device.type == "cpu":
-        return roi_align_ref(features, boxes, crop_size)
+                   crop_size: Sequence[int]) -> torch.Tensor:
+    """K1's launcher, the CUDA implementation of the op."""
     B, H, W, C = features.shape
     KH, KW = crop_size
     N = boxes.shape[1]
@@ -173,10 +182,12 @@ def roi_align_bwd(g: torch.Tensor, boxes: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """Gradient of ``roi_align`` with respect to the features: g
     [B,N,KH,KW,C] (f32 or bf16), boxes [B,N,4] -> [B,H,W,C] in ``dtype``
-    (on the card g's dtype, as the autograd Function passes it).  A CUDA g
-    that is not contiguous (the trunk's channel-major flatten hands one
-    over) is copied first, counted in ``roi_align_bwd.g_copies``.  Counts
-    its kernel launches in ``roi_align_bwd.launches``."""
+    (on the card g's dtype, as the forward op's autograd passes it).  K1b's
+    launcher, the CUDA implementation of ``din_tpu_torch::roi_align_bwd``;
+    called directly, a CPU g runs the plain version.  A CUDA g that is not
+    contiguous (the trunk's channel-major flatten hands one over) is copied
+    first, counted in ``roi_align_bwd.g_copies``.  Counts its kernel
+    launches in ``roi_align_bwd.launches``."""
     if g.device.type == "cpu":
         return roi_align_bwd_ref(g, boxes, feature_hw, dtype)
     native.require_cuda_input(g, "g", _FLOAT_TYPES, 5, contiguous=False)
@@ -212,20 +223,46 @@ def _check_boxes(boxes: torch.Tensor, B: int, device) -> None:
         raise ValueError("boxes and features must be on the same device")
 
 
-class _RoIAlign(torch.autograd.Function):
-    """K1 forward, K1b backward; boxes get no gradient."""
+_roi_align_op = torch.library.custom_op(
+    "din_tpu_torch::roi_align", _roi_align_fwd, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor features, Tensor boxes, int[] crop_size) -> Tensor")
+_roi_align_op.register_kernel("cpu", roi_align_ref)
+_roi_align_bwd_op = torch.library.custom_op(
+    "din_tpu_torch::roi_align_bwd", roi_align_bwd, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor g, Tensor boxes, int[] feature_hw, ScalarType dtype) "
+           "-> Tensor")
+_roi_align_bwd_op.register_kernel("cpu", roi_align_bwd_ref)
 
-    @staticmethod
-    def forward(ctx, features, boxes, crop_size):
-        ctx.save_for_backward(boxes)
-        ctx.feature_hw = tuple(features.shape[1:3])
-        ctx.dtype = features.dtype
-        return _roi_align_fwd(features, boxes, crop_size)
 
-    @staticmethod
-    def backward(ctx, g):
-        (boxes,) = ctx.saved_tensors
-        return roi_align_bwd(g, boxes, ctx.feature_hw, ctx.dtype), None, None
+@_roi_align_op.register_fake
+def _(features, boxes, crop_size):
+    B, _, _, C = features.shape
+    return features.new_empty((B, boxes.shape[1], *crop_size, C))
+
+
+@_roi_align_bwd_op.register_fake
+def _(g, boxes, feature_hw, dtype):
+    return g.new_empty((g.shape[0], *feature_hw, g.shape[-1]), dtype=dtype)
+
+
+def _roi_align_setup(ctx, inputs, output):
+    features, boxes, _ = inputs
+    ctx.save_for_backward(boxes)
+    ctx.feature_hw = list(features.shape[1:3])
+    ctx.dtype = features.dtype
+
+
+def _roi_align_backward(ctx, g):
+    """K1b; boxes get no gradient."""
+    (boxes,) = ctx.saved_tensors
+    return (torch.ops.din_tpu_torch.roi_align_bwd(g, boxes, ctx.feature_hw,
+                                                  ctx.dtype), None, None)
+
+
+_roi_align_op.register_autograd(_roi_align_backward,
+                                setup_context=_roi_align_setup)
 
 
 def roi_align(features: torch.Tensor, boxes: torch.Tensor,
@@ -240,11 +277,8 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor,
     if features.device.type != "cpu":
         native.require_cuda_input(features, "features", _FLOAT_TYPES, 4)
         _check_boxes(boxes, features.shape[0], features.device)
-    boxes = boxes.detach()
-    crop_size = tuple(crop_size)
-    if torch.is_grad_enabled() and features.requires_grad:
-        return _RoIAlign.apply(features, boxes, crop_size)
-    return _roi_align_fwd(features, boxes, crop_size)
+    return torch.ops.din_tpu_torch.roi_align(features, boxes.detach(),
+                                             list(crop_size))
 
 
 roi_align.launches = 0

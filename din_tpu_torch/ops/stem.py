@@ -1,4 +1,5 @@
-"""The fused VGG-16 stem forward: kernel K3 and its plain version.
+"""The fused VGG-16 stem forward: kernel K3, its plain version, and the
+custom op ``din_tpu_torch::fused_stem`` around them.
 
 Port of din_tpu/ops/stem_kernel.py ``fused_stem_fwd`` (body ``_stem_kernel``
 :68-130): conv1_1 + bias + ReLU, conv1_2 + bias + ReLU and the 2x2/2
@@ -24,8 +25,13 @@ and only conv1_2's order of summation differs.  cuDNN's bf16 route rounds
 each conv's output before its bias add, so the plain version is its own
 function, not the layers.
 
-``fused_stem`` on CPU tensors runs the plain version; on CUDA tensors it
-launches csrc/fused_stem.cu or raises.  The bf16 kernel runs conv1_2 on
+The op's CUDA implementation is the launcher ``_fused_stem_fwd``, its CPU
+implementation the plain version; no other device is registered, the fake
+implementation gives the output's shape, dtype and strides, and no
+autograd is registered, so differentiating through the op raises.  Only
+the launcher counts.  ``fused_stem`` on a CPU tensor runs the plain
+version; on a CUDA tensor it launches csrc/fused_stem.cu or raises; any
+other device raises.  The bf16 kernel runs conv1_2 on
 wgmma with warp-specialised producers of y1 (the source's header has the
 design); the wrapper builds nothing for it: the kernel stages torch's OIHW
 weights into its shared-memory layout once per block.
@@ -67,14 +73,9 @@ def fused_stem_ref(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     return max_pool_2x2_ref(y2.permute(0, 2, 3, 1)).to(dtype).contiguous()
 
 
-def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
-               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """VGG-16 ``features[0:5]`` forward of NHWC frames x [F,H,W,3] (f32 or
-    bf16) with conv1_1 (w0 [64,3,3,3], b0) and conv1_2 (w2 [64,64,3,3], b2)
-    in x's dtype -> [F,H//2,W//2,64] NHWC.  No gradient.  Counts its kernel
-    launches in ``fused_stem.launches``."""
-    if x.device.type == "cpu":
-        return fused_stem_ref(x, w0, b0, w2, b2)
+def _fused_stem_fwd(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                    w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """K3's launcher, the CUDA implementation of the op."""
     native.require_cuda_input(x, "x", _FLOAT_TYPES, 4)
     if x.shape[-1] != 3:
         raise ValueError(f"x must be [F,H,W,3], got {tuple(x.shape)}")
@@ -101,6 +102,30 @@ def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     native.check(code, "fused_stem")
     fused_stem.launches += 1
     return out
+
+
+_stem_op = torch.library.custom_op(
+    "din_tpu_torch::fused_stem", _fused_stem_fwd, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor x, Tensor w0, Tensor b0, Tensor w2, Tensor b2) -> Tensor")
+_stem_op.register_kernel("cpu", fused_stem_ref)
+
+
+@_stem_op.register_fake
+def _(x, w0, b0, w2, b2):
+    Fr, H, W, _ = x.shape
+    return x.new_empty((Fr, H // 2, W // 2, 64))
+
+
+def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """VGG-16 ``features[0:5]`` forward of NHWC frames x [F,H,W,3] (f32 or
+    bf16) with conv1_1 (w0 [64,3,3,3], b0) and conv1_2 (w2 [64,64,3,3], b2)
+    in x's dtype -> [F,H//2,W//2,64] NHWC.  No gradient.  Counts its kernel
+    launches in ``fused_stem.launches``."""
+    if x.device.type != "cpu":
+        native.require_cuda_input(x, "x", _FLOAT_TYPES, 4)
+    return torch.ops.din_tpu_torch.fused_stem(x, w0, b0, w2, b2)
 
 
 fused_stem.launches = 0

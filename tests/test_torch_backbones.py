@@ -54,7 +54,7 @@ from din_tpu_torch.ops.image import (interp_matrix_align_corners,
                                      resize_bilinear_align_corners)
 from din_tpu_torch.ops.roi_align import roi_align, roi_align_multiscale
 from test_torch_inception import _close, _torch, check_against_f64, seeded
-from test_torch_inception import one_thread  # noqa: F401 (autouse)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 _HW = (96, 128)
 # each backbone's map at 96x128

@@ -55,6 +55,7 @@ from din_tpu_torch.heads.sacrf_biute import SACRF, BiUTE
 from din_tpu_torch.nn.layers import SeededDropout
 from din_tpu_torch.nn.ref_export import (_att_block, _cib, _gcn, _lin, _ln,
                                          _lstm)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 B, T, N, C = 2, 4, 12, 64
 # SACRF's halting iterations and attention heads here (10 and 8 in the

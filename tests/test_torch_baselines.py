@@ -37,6 +37,7 @@ from din_tpu.models.trunk import Trunk, trunk_from_cfg
 from din_tpu_torch.experiments.presets import PRESETS
 from din_tpu_torch.models.registry import build_model
 from din_tpu_torch.nn.ref_export import jax_params_to_state_dict
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 GEOM = dict(image_size=(64, 96), out_size=(2, 3), num_frames=4,
             num_boxes=12, num_features_boxes=64, num_features_gcn=64,

@@ -30,6 +30,7 @@ from din_tpu_torch.nn.ref_import import (load_reference_checkpoint,
 from din_tpu_torch.train.checkpoint import load_state
 from din_tpu_torch.train.optim import make_optimizer
 from test_torch_baselines import CASES, GEOM, port_state, setup
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", ["pctdm", "higcin", "at", "arg", "sacrf",

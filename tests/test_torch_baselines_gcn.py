@@ -10,6 +10,7 @@ import pytest
 from din_tpu_torch.experiments.presets import PRESETS
 from din_tpu_torch.models.registry import build_model
 from test_torch_baselines import check_eval, setup
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", ["arg", "gcnnet_volleyball",

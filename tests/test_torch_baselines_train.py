@@ -57,6 +57,7 @@ from din_tpu_torch.nn.layers import SeededDropout
 from din_tpu_torch.train.engine import train_step
 from din_tpu_torch.train.optim import make_optimizer
 from test_torch_baselines import port_state, setup
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def jax_step(case):

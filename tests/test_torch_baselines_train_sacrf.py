@@ -7,6 +7,7 @@ time budget.)
 """
 
 from test_torch_baselines_train import check_train_step
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def test_one_train_step_matches_jax():

@@ -64,6 +64,7 @@ from din_tpu_torch.train.engine import train_step
 from din_tpu_torch.train.optim import make_optimizer
 from test_torch_resnet import perturb_bn
 from test_torch_train import _perturb
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 _GEOM = dict(image_size=(64, 96), out_size=(2, 3), num_frames=3,
              compute_dtype="float32", train_dropout_prob=0.0, batch_size=3,

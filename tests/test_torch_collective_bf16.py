@@ -46,6 +46,7 @@ from din_tpu.nn.backbones import ResNet18Backbone as JaxRes18
 from din_tpu_torch.experiments.predict import Predictor
 import test_torch_collective
 from test_torch_resnet import _to_port, perturb_bn
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 _HW = (64, 96)
 

@@ -30,6 +30,7 @@ from din_tpu_torch.data.loader import BatchLoader
 from din_tpu_torch.data.packed import PackedFrameStore, pack_frames
 from din_tpu_torch.experiments.presets import PRESETS
 from test_torch_resnet import torchvision_res18_file
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 Image = pytest.importorskip("PIL.Image")
 

@@ -11,6 +11,7 @@ import pytest
 
 from test_torch_collective import (_setup, check_padded_actors,
                                    check_predictor, check_train_step)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

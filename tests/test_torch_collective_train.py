@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from test_torch_collective import _setup, check_train_step
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

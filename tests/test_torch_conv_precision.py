@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from din_tpu_torch.utils import precision
 from din_tpu_torch.utils.precision import ieee_conv2d
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])

@@ -33,6 +33,7 @@ from din_tpu_torch.data.loader import BatchLoader, prefetch_to_device
 from din_tpu_torch.data.packed import (PackedFrameStore, make_frame_source,
                                        pack_frames)
 from din_tpu_torch.experiments.presets import PRESETS
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 Image = pytest.importorskip("PIL.Image")
 

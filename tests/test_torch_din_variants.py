@@ -37,6 +37,7 @@ from din_tpu_torch.nn.ref_export import _din, _ln, jax_params_to_state_dict
 from din_tpu_torch.nn.ref_import import load_reference_checkpoint
 from test_torch_train import (_backbone_flips, _conv_index, _perturb,
                               _torch_state)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 GEOM = dict(image_size=(64, 96), out_size=(2, 3), num_frames=3,
             num_boxes=4, num_features_boxes=64, lite_dim=16,

@@ -30,6 +30,7 @@ from din_tpu_torch.experiments.presets import PRESETS
 from din_tpu_torch.train import engine
 from test_torch_data import write_tree
 from test_torch_train import _perturb
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, W = 64, 96
 CLIPS = {0: (10, 20), 1: (10, 20), 2: (10, 20, 30)}

@@ -7,7 +7,7 @@
 - The CUDA sources include no PyTorch header: they build with plain nvcc in
   seconds and bind through ctypes.
 - Entry points run on the card: with no CUDA they raise unless the caller
-  passes device="cpu".
+  passes device="cpu" (serving, profiling, the export and its artifact).
 """
 
 import ast
@@ -85,9 +85,16 @@ def _tiny_cfg():
 
 
 @pytest.mark.parametrize("entry",
-                         ["build_model", "Predictor", "main", "profile"])
-def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
-    from din_tpu_torch.experiments import predict, profile_serving
+                         ["build_model", "Predictor", "main", "profile",
+                          "export", "ExportedPredictor"])
+def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch,
+                                                     tmp_path):
+    import io
+    import json
+    import zipfile
+
+    from din_tpu_torch.experiments import (export_serving, predict,
+                                           profile_serving)
     from din_tpu_torch.models.registry import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -100,8 +107,17 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
             predict.Predictor(cfg, model)
         elif entry == "main":
             predict.main(["--batch", "1"])
-        else:
+        elif entry == "profile":
             profile_serving.main(["--requests", "1"])
+        elif entry == "export":
+            export_serving.main(["--out", str(tmp_path / "model.pt2")])
+        else:   # an artifact of the card, read up to its header
+            buf = io.BytesIO()
+            with zipfile.ZipFile(buf, "w") as z:
+                z.writestr("archive/extra/" + export_serving.HEADER_NAME,
+                           json.dumps({"format": export_serving.FORMAT,
+                                       "device": "cuda"}))
+            export_serving.ExportedPredictor.from_bytes(buf.getvalue())
     assert next(model.parameters()).device.type == "cpu"
     if entry == "Predictor":
         p = predict.Predictor(cfg, model, device="cpu")

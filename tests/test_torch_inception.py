@@ -46,21 +46,11 @@ from din_tpu_torch.nn.ref_import import (load_pretrained_backbone,
 from din_tpu_torch.train.checkpoint import (load_backbone_stage2,
                                             save_stage1_components)
 from din_tpu_torch.train.engine import setup_training
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 _HW = (96, 128)
 _MAPS = ((9, 13), (4, 6))                    # Mixed_5d, Mixed_6e at _HW
 _STATS = ("running_mean", "running_var")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for a module's tests: at these small maps it is
-    as fast alone, and it keeps the suite's parallel workers from
-    oversubscribing the host's cores.  The previous count is restored."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def seeded(tree, rng):

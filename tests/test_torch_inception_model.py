@@ -62,7 +62,7 @@ from din_tpu_torch.train.engine import train_step
 from din_tpu_torch.train.optim import make_optimizer
 from test_torch_collective import _batch, check_params
 from test_torch_inception import _HW, _MAPS, _STATS, _close, _torch, seeded
-from test_torch_inception import one_thread  # noqa: F401 (autouse)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def stage1_case(out_size, pool):

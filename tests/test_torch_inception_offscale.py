@@ -11,9 +11,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
-from test_torch_inception import one_thread  # noqa: F401 (autouse)
 from test_torch_inception_model import (check_stage1_predictor,
                                         check_stage1_train_step, stage1_case)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

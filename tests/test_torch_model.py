@@ -23,6 +23,7 @@ from din_tpu_torch.experiments.predict import Predictor
 from din_tpu_torch.experiments.presets import PRESETS
 from din_tpu_torch.models.registry import build_model
 from din_tpu_torch.nn.ref_export import jax_params_to_state_dict
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 _GEOM = dict(image_size=(144, 160), out_size=(4, 5), num_frames=3,
              num_boxes=5, compute_dtype="float32")

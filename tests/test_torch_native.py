@@ -24,6 +24,7 @@ import pytest
 
 from din_tpu import native as jax_native
 from din_tpu_torch import native
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 Image = pytest.importorskip("PIL.Image")
 

@@ -26,6 +26,7 @@ from din_tpu_torch.ops.pool import (max_pool_2x2, max_pool_2x2_bwd,
                                     max_pool_2x2_bwd_ref)
 from din_tpu_torch.ops.roi_align import (_sample_grid, roi_align,
                                          roi_align_bwd, roi_align_bwd_ref)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _to_np(t: torch.Tensor) -> np.ndarray:

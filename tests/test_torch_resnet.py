@@ -40,6 +40,7 @@ from din_tpu_torch.nn.layers import TorchBatchNorm
 from din_tpu_torch.nn.ref_export import export_backbone_state
 from din_tpu_torch.nn.ref_import import load_pretrained_backbone
 from din_tpu_torch.train.engine import setup_training
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 _HW = (64, 96)
 _BN_KEYS = ("running_mean", "running_var")

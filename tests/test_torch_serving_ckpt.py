@@ -39,6 +39,7 @@ from din_tpu_torch.train import inspect_ckpt
 from din_tpu_torch.train.checkpoint import save_stage1_components, save_state
 from din_tpu_torch.train.optim import make_optimizer
 from test_torch_train import _perturb
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 GEOM = dict(image_size=(64, 96), out_size=(2, 3), num_frames=3,
             num_boxes=4, num_features_boxes=64, lite_dim=16,

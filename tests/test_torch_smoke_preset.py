@@ -26,6 +26,7 @@ from din_tpu_torch.train.engine import train_step
 from din_tpu_torch.train.optim import make_optimizer
 from test_torch_resnet import perturb_bn
 from test_torch_train import _perturb
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def test_synthetic_smoke_matches_jax():

@@ -43,6 +43,7 @@ from din_tpu_torch.train.engine import setup_training
 from din_tpu_torch.train.optim import make_optimizer
 from test_torch_train import (_backbone_flips, _check_params, _conv_index,
                               _perturb, _run_port, _torch_state)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 _GEOM = dict(image_size=(64, 96), out_size=(2, 3), num_frames=3,
              num_boxes=4, num_features_boxes=64, compute_dtype="float32",

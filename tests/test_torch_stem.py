@@ -22,6 +22,7 @@ from din_tpu_torch.nn import backbones
 from din_tpu_torch.nn.backbones import VGG16Backbone
 from din_tpu_torch.ops.pool import max_pool_2x2_ref
 from din_tpu_torch.ops.stem import fused_stem, fused_stem_ref
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _bf16_ulp(x: np.ndarray) -> np.ndarray:

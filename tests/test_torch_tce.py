@@ -27,6 +27,7 @@ from test_torch_din_variants import (check_forward_and_grads,
                                      check_reference_state_loads,
                                      variant_case)
 from test_torch_train import _perturb
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,7 @@ from din_tpu_torch.nn.layers import SeededDropout
 from din_tpu_torch.train import losses
 from din_tpu_torch.train.engine import train_step
 from din_tpu_torch.train.optim import lr_for_epoch, make_optimizer
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 _GEOM = dict(image_size=(64, 96), out_size=(2, 3), num_frames=3,
              num_boxes=4, num_features_boxes=64, lite_dim=16,
