@@ -101,9 +101,9 @@ Phases, each timed, any failure exits non-zero:
    run from the pack (first batch bit-equal, step-1 loss within rtol 1e-5,
    0 misses, no live decode); ``--stage2-model-path <that checkpoint>
    --eval-only`` (the same accuracy, loss within rtol 1e-5, K3 launched, no
-   step, no file written); and ``volleyball_stage1`` from the tree with its
-   ``test_before_train`` eval (epoch 0), one step of 8 one-frame clips and
-   10-frame eval clips;
+   step, no file but its log and metrics stream); and
+   ``volleyball_stage1`` from the tree with its ``test_before_train`` eval
+   (epoch 0), one step of 8 one-frame clips and 10-frame eval clips;
 9. the Collective Activity path (ResNet-18 with live BatchNorm, 480x720,
    T=10, 13 actor slots; K1 and K1b only): a ResNet-18 ``BasenetCollective``
    (``collective_stage1`` with ``backbone="res18"``) through ``train_net``
@@ -208,7 +208,45 @@ Phases, each timed, any failure exits non-zero:
    ``cudnn.allow_tf32 = True`` set (each within 1e-5 of the live
    Predictor's posteriors), and once without the program's IEEE f32
    context (reported); then the median of six 1-clip requests through the
-   artifact beside the live Predictor's, in turns.
+   artifact beside the live Predictor's, in turns;
+15. the training infrastructure (``train/engine.py``, ``train/preempt.py``,
+   ``train/checkpoint.py``, ``utils/meters.py``, ``utils/logging.py``,
+   ``utils/profiling.py``, ``heads/tce.py``) on the flagship at full width
+   with random weights: (a) one step on 4 clips whole and one at
+   ``grad_accum_steps=2`` from the same state (dropout 0,
+   ``cudnn.deterministic``, both in 5-frame backbone chunks, so that
+   cuDNN's bf16 convolutions see the same shapes): losses within rtol
+   1e-5, counters and confusion equal, parameters within
+   ``check_params``' one-step bounds, launches those of one bs4 step and
+   of two bs2 micro-steps; then both at the default chunks (8 frames
+   whole, 5 per micro-step): their loss gap reported, ms per step and
+   peak memory of each; (b) ``train_net`` with dropout 0.3 over
+   an epoch of exactly 4 batches of 2: two uninterrupted runs, then a run
+   that sends itself SIGTERM after its second step (through a wrapper of
+   the engine's ``train_step``) and must leave
+   ``stage2_epoch0_preempt.pth`` (step 2, the dropout generator's state)
+   and its log line, the generator's state that of the first
+   uninterrupted run after step 2, then ``auto_resume``, which must log
+   "resuming at epoch 1, step 2", start from the file's weights, Adam
+   state and generator bit for bit, train steps 3 and 4 on the first
+   run's batches 3 and 4 (launch counts derived), end with its generator
+   state and with no parameter more than 2 lr per step from it
+   (``check_params``, ulps=0; the share beyond 2e-5 reported, as phase 6
+   reports stage 1's); the gaps of its losses, parameters and Adam
+   moments are reported beside those between the two uninterrupted runs
+   (atomics make two runs on the card differ); (c) MAD: an eval with
+   ``measure_mad`` at phase 6's geometry on the card against the CPU
+   (within 1e-5 relative), and at full width (finite, its launches those
+   of an eval without MAD, its ms against one without, in turns); (d)
+   three epochs with ``keep_checkpoints=1`` and ``profile_dir``: the files
+   ``prune_checkpoints``' rule names, ``metrics.jsonl`` with a record per
+   reported epoch and phase, the run's entry in ``experiments.json``, and a
+   trace that names K1's, K1b's, K2's and K2b's kernels; (e) the raw-RoI
+   TCE pieces and the bilinear attention in f32 at the [20,45,80,256]
+   context, on the card and the CPU, each against a float64 CPU run: the
+   card no farther from it than twice the CPU or 1e-5 of max |y| (the
+   peaked attention over 3600 cells moves f32 results by ~1e-4 with the
+   summation order), the card-CPU gap reported.
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -1143,7 +1181,8 @@ def volleyball_on_disk(dev, tmp: Path, s1_path: str, smi: str,
     require(info["activities_acc"] == want["activities_acc"]
             and abs(info["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
             and info["epoch"] == 1, "--eval-only does not reproduce the eval")
-    require(not tap.train_batches and written == ["log.txt"]
+    require(not tap.train_batches
+            and written == ["log.txt", "metrics.jsonl"]
             and (not on_card or e_counts == e_expect),
             "--eval-only trained, wrote a file, or launched other kernels")
     require(same_batches(tap.eval_batches, [
@@ -2890,6 +2929,501 @@ def export_path(dev, tmp: Path, ckpt: str, smi: str, reset_counts,
                 numbers=numbers)
 
 
+def _train_snapshot(model, optimizer) -> dict:
+    """CPU copies of a model's parameters, their Adam moments (by parameter
+    name) and its dropout generators' states."""
+    from din_tpu_torch.nn.layers import SeededDropout
+
+    params = {n: p.detach().cpu().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    moments = {}
+    for n, p in model.named_parameters():
+        st = optimizer.state.get(p)
+        if st:
+            moments[n + ".exp_avg"] = st["exp_avg"].cpu().clone()
+            moments[n + ".exp_avg_sq"] = st["exp_avg_sq"].cpu().clone()
+    return dict(params=params, moments=moments,
+                rng={n: m.get_rng_state() for n, m in model.named_modules()
+                     if isinstance(m, SeededDropout)})
+
+
+def _max_gap(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
+                        shrink=lambda c: c, small=(144, 160)) -> dict:
+    """Phase 15: the training infrastructure (see the module docstring).
+    ``shrink`` sizes the flagship down and ``small`` is the card-against-
+    CPU geometry, for a rehearsal on the CPU, where no kernel launches and
+    the counts, times and card-against-CPU checks are not taken.  Returns
+    the launch counts of each path and the measured numbers."""
+    import os
+    import signal
+
+    from din_tpu_torch.data.loader import BatchLoader, to_device
+    from din_tpu_torch.data.synthetic import (SyntheticDataset,
+                                              make_synthetic_batch)
+    from din_tpu_torch.experiments.presets import PRESETS
+    from din_tpu_torch.heads import tce
+    from din_tpu_torch.models.registry import build_model
+    from din_tpu_torch.train import engine
+    from din_tpu_torch.train.optim import make_optimizer
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cpu = torch.device("cpu")
+    t_all = time.time()
+    base = shrink(PRESETS["volleyball_stage2_dynamic"]().replace(
+        data_path="synthetic", load_backbone_stage2=False,
+        result_root=str(tmp)))
+    T, lr = base.num_frames, base.train_learning_rate
+    counts, numbers = {}, {}
+
+    def expect(c, what, got, steps, eval_calls):
+        want, how = derived_counts(c, steps, T, eval_calls, T)
+        log(f"[infra] {what}: launches {got}, expected {want} ({how})")
+        require(not on_card or got == want, f"{what}: launch counts are off")
+        return want
+
+    # -- a. gradient accumulation against the whole batch ----------------
+    # The check runs both steps in 5-frame backbone chunks: by default a
+    # 4-clip step takes 8-frame chunks and a 2-clip micro-step 5-frame
+    # ones, and cuDNN's bf16 convolutions of other shapes round otherwise
+    # (the timed default steps' gap is logged beside).
+    t0 = time.time()
+    acfg = base.replace(train_dropout_prob=0.0, batch_size=4)
+    gen = torch.Generator().manual_seed(SEED + 151)
+    start = build_model(acfg, device=dev, generator=gen)
+    _randomize_din(start, gen)
+    batch = to_device(make_synthetic_batch(
+        acfg, 4, rng=np.random.RandomState(SEED + 152)), dev)
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    for name, c in (("bs4", acfg.replace(frame_chunk=5)),
+                    ("accum", acfg.replace(frame_chunk=5,
+                                           grad_accum_steps=2)),
+                    ("bs4_default", acfg),
+                    ("accum_default", acfg.replace(grad_accum_steps=2))):
+        model = copy.deepcopy(start)
+        model.cfg = c          # the trunk reads its chunks from the model's
+        opt = make_optimizer(c, model)
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        # the first step with cuDNN's deterministic algorithms; the timed
+        # steps after it with the default flags
+        torch.backends.cudnn.deterministic = True
+        try:
+            m = engine.train_step(model, opt, batch, c)
+            sync()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        launched = read_counts()
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        timed = on_card and name.endswith("_default")
+        ms = time_host(lambda: engine.train_step(model, opt, batch, c), 3) \
+            if timed else [0.0]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if timed \
+            else 0.0
+        runs[name] = dict(metrics={k: v.cpu() for k, v in m.items()},
+                          state=state, counts=launched, ms=ms, peak=peak,
+                          cfg=c)
+        del model, opt, m
+        if on_card:
+            torch.cuda.empty_cache()
+    del start, batch
+
+    def loss_gap(x, y):
+        lx, ly = float(x["metrics"]["loss"]), float(y["metrics"]["loss"])
+        return abs(ly - lx) / abs(lx)
+
+    a, b = runs["bs4"], runs["accum"]
+    lerr = loss_gap(a, b)
+    require(lerr <= 1e-5, f"accumulated loss {float(b['metrics']['loss'])} "
+            f"against {float(a['metrics']['loss'])}")
+    for k in ("activities_correct", "activities_total", "activities_conf"):
+        require(torch.equal(a["metrics"][k], b["metrics"][k]),
+                f"accumulated step's {k} differs")
+    perr, share, share_name = check_params(b["state"], a["state"], (1,), lr,
+                                           "accumulated vs whole batch")
+    counts["accum"] = b["counts"]
+    for name, steps, bs in (("bs4", 1, 4), ("accum", 2, 2),
+                            ("bs4_default", 1, 4), ("accum_default", 2, 2)):
+        expect(runs[name]["cfg"].replace(batch_size=bs), f"{name} step",
+               runs[name]["counts"], steps, 0)
+    da, db = runs["bs4_default"], runs["accum_default"]
+    default_gap = loss_gap(da, db)
+    numbers["accum"] = dict(
+        loss_rel=lerr, param_gap=perr, share=share,
+        default_chunks_loss_rel=default_gap,
+        bs4_ms=float(np.mean(da["ms"][-2:])),
+        accum_ms=float(np.mean(db["ms"][-2:])),
+        bs4_gib=da["peak"], accum_gib=db["peak"])
+    log(f"[infra] accumulation at full width ({acfg.image_size[0]}x"
+        f"{acfg.image_size[1]}, T={T}, dropout 0, cudnn.deterministic, "
+        f"5-frame chunks): one step on 4 clips, once whole and once as "
+        f"grad_accum_steps=2, from one state: loss "
+        f"{float(a['metrics']['loss']):.7f} against "
+        f"{float(b['metrics']['loss']):.7f} (rel {lerr:.3g} <= 1e-5), "
+        f"counters and confusion equal; params max |diff| {perr:.3g} (<= "
+        f"2 lr), largest share beyond 2e-5 {share:.4f} ({share_name or '-'})"
+        f"; with the default chunks (8 frames whole, 5 per micro-step) the "
+        f"losses differ by {default_gap:.3g} (reported)")
+    log(f"[infra] accumulation, default chunks: 3 steps after the first "
+        f"(default flags, host clock, synchronized, batch on the card): bs4 "
+        f"{', '.join(f'{v:.1f}' for v in da['ms'])} ms, peak device memory "
+        f"{da['peak']:.2f} GiB; grad_accum_steps=2 "
+        f"{', '.join(f'{v:.1f}' for v in db['ms'])} ms, peak "
+        f"{db['peak']:.2f} GiB [{smi}]")
+    del runs
+    log(f"[infra] accumulation done in {time.time() - t0:.2f} s")
+
+    # -- b. preemption and auto-resume through train_net ------------------
+    # Two uninterrupted runs on the card differ (atomics in the backward of
+    # the DIN head's gather and in cuDNN's), so the card's resumed run is
+    # checked by what it continues from: the resumed model, Adam state and
+    # generator equal the file's bit for bit before its first step, the
+    # file's generator equals the uninterrupted run's after step 2 (its
+    # offset depends on the draws alone), the resumed steps take that run's
+    # batches 3 and 4, and the generators end equal.  Its end state is held
+    # to the bounds of the card's own trajectory against the CPU (phase 6):
+    # no parameter more than 2 lr per step apart (check_params, ulps=0),
+    # the share beyond 2e-5 reported (conv1_1's few sums flip, as in phase
+    # 6's stage 1); its losses and Adam moments are reported, each beside
+    # the gap between the two uninterrupted runs.
+    t0 = time.time()
+    pcfg = base.replace(max_epoch=1)
+    n_val = 2
+    saved = {n: getattr(engine, n) for n in ("return_dataset", "train_step")}
+    seen = {}
+
+    def datasets(c):
+        # an epoch of exactly 4 batches, so the resumed epoch trains the
+        # two steps the interrupted one did not
+        return (SyntheticDataset(c, size=4 * c.batch_size, is_training=True,
+                                 seed=1),
+                SyntheticDataset(c, size=n_val, is_training=False, seed=2))
+
+    def recording(model, optimizer, batch, c):
+        if not seen["losses"] and seen["on_start"] is not None:
+            seen["on_start"](model, optimizer)
+        seen["model"], seen["optimizer"] = model, optimizer
+        seen["batches"].append(batch if seen["keep_batches"] else
+                               {k: v.sum().item() for k, v in batch.items()})
+        out = saved["train_step"](model, optimizer, batch, c)
+        seen["losses"].append(float(out["loss"]))
+        seen["rngs"].append(model.dropout_global.get_rng_state())
+        if len(seen["losses"]) == seen["kill_at"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    def run(c, kill_at=None, on_start=None, keep_batches=False):
+        seen.update(losses=[], rngs=[], batches=[], kill_at=kill_at,
+                    on_start=on_start, keep_batches=keep_batches)
+        engine.train_net(c, device=dev)
+        snap = _train_snapshot(seen.pop("model"), seen.pop("optimizer"))
+        snap.update(losses=seen["losses"], rngs=seen["rngs"],
+                    batches=seen["batches"])
+        if on_card:
+            torch.cuda.empty_cache()
+        return snap
+
+    def same_batch(x, y):
+        return sorted(x) == sorted(y) and all(torch.equal(x[k], y[k])
+                                              for k in x)
+
+    start_checks = {}
+
+    def resumed_start(model, optimizer):
+        """The resumed run before its first step against the file."""
+        state = model.state_dict()
+        start_checks["weights"] = all(
+            torch.equal(state[k].cpu(), v)
+            for k, v in payload["state_dict"].items())
+        ostate = optimizer.state_dict()["state"]
+        start_checks["adam"] = all(
+            torch.equal(ostate[i][k].cpu(), v)
+            for i, st in payload["optimizer"]["state"].items()
+            for k, v in st.items())
+        start_checks["generator"] = torch.equal(
+            model.dropout_global.get_rng_state(),
+            payload["dropout_rng"]["dropout_global"])
+
+    engine.return_dataset, engine.train_step = datasets, recording
+    try:
+        u1 = run(pcfg.replace(exp_name="u1"), keep_batches=True)
+        u2 = run(pcfg.replace(exp_name="u2"))
+        p = run(pcfg.replace(exp_name="p"), kill_at=2)
+        require(len(u1["losses"]) == len(u2["losses"]) == 4
+                and len(p["losses"]) == 2,
+                f"steps: {len(u1['losses'])}, {len(u2['losses'])}, the "
+                f"preempted run {len(p['losses'])}")
+        pre = tmp / "p" / "stage2_epoch0_preempt.pth"
+        files = sorted(f.name for f in (tmp / "p").glob("*.pth"))
+        require(files == [pre.name], f"after SIGTERM: {files}")
+        payload = torch.load(pre, map_location="cpu", weights_only=True)
+        require(payload["epoch"] == 0 and payload["step"] == 2,
+                f"preempt file: epoch {payload['epoch']}, step "
+                f"{payload['step']}")
+        require(torch.equal(payload["dropout_rng"]["dropout_global"],
+                            u1["rngs"][1]),
+                "the file's generator state is not the uninterrupted run's "
+                "after step 2")
+        plog = (tmp / "p" / "log.txt").read_text()
+        require("preemption: state saved to" in plog
+                and "Train at epoch" not in plog,
+                "the preempted run's log lacks the save or reported an epoch")
+        reset_counts()
+        tt = time.time()
+        res = run(pcfg.replace(exp_name="p", auto_resume=True),
+                  on_start=resumed_start, keep_batches=True)
+        sync()
+        resume_s = time.time() - tt
+        counts["resume"] = read_counts()
+    finally:
+        for n, fn in saved.items():
+            setattr(engine, n, fn)
+    require(len(res["losses"]) == 2, f"the resumed run took "
+            f"{len(res['losses'])} steps")
+    require("resuming at epoch 1, step 2" in (tmp / "p" / "log.txt")
+            .read_text(), "the resumed run's log lacks 'resuming at epoch 1, "
+            "step 2'")
+    require(start_checks == dict(weights=True, adam=True, generator=True),
+            f"the resumed run did not start from the file: {start_checks}")
+    require(all(same_batch(x, y) for x, y in zip(res["batches"],
+                                                 u1["batches"][2:])),
+            "the resumed steps did not take the epoch's batches 3 and 4")
+    require(all(torch.equal(res["rng"][k], u1["rng"][k]) for k in u1["rng"]),
+            "the resumed run's dropout generators end elsewhere")
+    expect(pcfg, "resumed run (2 steps and an eval)", counts["resume"], 2,
+           -(-n_val // pcfg.test_batch_size))
+    gaps = {}
+    for what, r in (("resumed", res), ("uninterrupted", u2)):
+        pe, ps, pn = check_params(r["params"], u1["params"], range(1, 5), lr,
+                                  f"{what} vs uninterrupted, params",
+                                  share_bound=None)
+        rel = {k: float((r["moments"][k] - v).abs().max())
+               / max(float(v.abs().max()), 1e-30)
+               for k, v in u1["moments"].items()}
+        worst = max(rel, key=rel.get)
+        gaps[what] = dict(
+            param=pe, share=ps, share_name=pn,
+            moment=_max_gap(r["moments"], u1["moments"]),
+            moment_rel=rel[worst], moment_name=worst,
+            loss=max(abs(x - y) / abs(y) for x, y in zip(
+                r["losses"][-2:], u1["losses"][2:])))
+    numbers["resume"] = dict(gaps=gaps, resume_s=resume_s)
+    log(f"[infra] preemption: train_net of the flagship at full width, "
+        f"dropout {pcfg.train_dropout_prob}, an epoch of 4 batches of "
+        f"{pcfg.batch_size}; a real SIGTERM after step 2 left {pre.name} "
+        f"(epoch 0, step 2, the generator state of the uninterrupted run "
+        f"after step 2) and the log line; --auto-resume logged 'resuming at "
+        f"epoch 1, step 2', started from the file's weights, Adam state and "
+        f"generator bit for bit, trained steps 3 and 4 on the uninterrupted "
+        f"run's batches 3 and 4 and the eval in {resume_s:.2f} s; the "
+        f"generators end equal")
+    for what, g in gaps.items():
+        log(f"[infra] {what} against the first uninterrupted run after 4 "
+            f"steps: losses of steps 3, 4 rel {g['loss']:.3g}; params max "
+            f"|diff| {g['param']:.3g} (<= 8 lr), largest share beyond 2e-5 "
+            f"{g['share']:.4f} ({g['share_name'] or '-'}); Adam moments max "
+            f"|diff| {g['moment']:.3g}, at most {g['moment_rel']:.3g} of a "
+            f"tensor's largest |value| ({g['moment_name']}; reported)")
+    log(f"[infra] losses: resumed {[round(v, 6) for v in res['losses']]}, "
+        f"uninterrupted {[round(v, 6) for v in u1['losses']]} and "
+        f"{[round(v, 6) for v in u2['losses']]}, preempted "
+        f"{[round(v, 6) for v in p['losses']]}")
+    del u1, u2, p, res, payload
+    log(f"[infra] preemption done in {time.time() - t0:.2f} s")
+
+    # -- c. MAD ------------------------------------------------------------
+    t0 = time.time()
+    scfg = base.replace(image_size=small, out_size=(4, 5), num_frames=3,
+                        compute_dtype="float32", train_dropout_prob=0.0,
+                        measure_mad=True, test_batch_size=2)
+    gen = torch.Generator().manual_seed(SEED + 153)
+    cpu_model = build_model(scfg, device="cpu", generator=gen)
+    _randomize_din(cpu_model, gen)
+    sval = list(BatchLoader(SyntheticDataset(scfg, size=3, is_training=False,
+                                             seed=SEED + 154), 2,
+                            shuffle=False, drop_last=False, pad_last=True))
+    mad_cpu = engine.run_eval(cpu_model, sval, scfg, 1, cpu)["MAD"]
+    mad_rel = 0.0
+    if on_card:
+        with no_tf32():
+            mad_card = engine.run_eval(copy.deepcopy(cpu_model).to(dev), sval,
+                                       scfg, 1, dev)["MAD"]
+        mad_rel = abs(mad_card - mad_cpu) / abs(mad_cpu)
+        require(mad_rel <= 1e-5, f"MAD card {mad_card} against CPU {mad_cpu}")
+        log(f"[infra] MAD card against CPU, eval of 3 clips (one padded) at "
+            f"{small[0]}x{small[1]}, T=3, f32 (TF32 off): {mad_card:.8f} "
+            f"against {mad_cpu:.8f} (rel {mad_rel:.3g} <= 1e-5)")
+    del cpu_model
+    fcfg = base.replace(measure_mad=True)
+    gen = torch.Generator().manual_seed(SEED + 155)
+    model = build_model(fcfg, device=dev, generator=gen)
+    _randomize_din(model, gen)
+    fval = list(BatchLoader(SyntheticDataset(fcfg, size=4, is_training=False,
+                                             seed=SEED + 156),
+                            fcfg.test_batch_size, shuffle=False,
+                            drop_last=False, pad_last=True))
+    times = {"mad": [], "plain": []}
+    mad_counts = {}
+    engine.run_eval(model, fval, fcfg.replace(measure_mad=False), 1, dev)
+    for route in ("plain", "mad", "mad", "plain"):
+        c = fcfg if route == "mad" else fcfg.replace(measure_mad=False)
+        sync()
+        reset_counts()
+        tt = time.perf_counter()
+        info = engine.run_eval(model, fval, c, 1, dev)
+        sync()
+        times[route].append((time.perf_counter() - tt) * 1e3)
+        mad_counts[route] = read_counts()
+        if route == "mad":
+            mad = info["MAD"]
+            require(math.isfinite(mad) and 0 <= mad <= 2, f"MAD {mad}")
+    counts["mad"] = mad_counts["mad"]
+    require(mad_counts["mad"] == mad_counts["plain"],
+            f"the MAD eval launched {mad_counts['mad']}, the plain one "
+            f"{mad_counts['plain']}")
+    expect(fcfg, "eval pass with measure_mad (one forward per batch)",
+           counts["mad"], 0, len(fval))
+    numbers["mad"] = dict(value=mad, card_vs_cpu_rel=mad_rel,
+                          mad_ms=float(np.mean(times["mad"])),
+                          plain_ms=float(np.mean(times["plain"])))
+    log(f"[infra] MAD at full width: {mad:.6f} over an eval of {len(fval)} "
+        f"clips (DIN offsets random); eval pass with measure_mad "
+        f"{', '.join(f'{v:.1f}' for v in times['mad'])} ms, without "
+        f"{', '.join(f'{v:.1f}' for v in times['plain'])} ms (host clock, "
+        f"in turns, batches made beforehand) [{smi}]")
+    del model, fval
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[infra] MAD done in {time.time() - t0:.2f} s")
+
+    # -- d. pruning, metrics.jsonl, experiments.json, the profiler --------
+    t0 = time.time()
+    prof = tmp / "profile"
+    hcfg = base.replace(exp_name="h", max_epoch=3, keep_checkpoints=1,
+                        profile_dir=str(prof))
+    engine.return_dataset = datasets
+    try:
+        reset_counts()
+        engine.train_net(hcfg, max_steps_per_epoch=1, device=dev)
+        sync()
+        counts["housekeeping"] = read_counts()
+    finally:
+        engine.return_dataset = saved["return_dataset"]
+    expect(hcfg, "3 epochs of 1 step, 3 evals", counts["housekeeping"], 3,
+           3 * -(-n_val // hcfg.test_batch_size))
+    hlog = (tmp / "h" / "log.txt").read_text()
+    accs = {}
+    for line in hlog.splitlines():
+        if line.startswith("model saved to: "):
+            name = Path(line.split(": ", 1)[1].strip()).name
+            accs[name] = (float(name.split("_")[2][:-5]),
+                          int(name.split("epoch")[1].split("_")[0]))
+    keep = {max(accs, key=lambda f: accs[f][1]),
+            max(accs, key=lambda f: accs[f])}
+    left = {f.name for f in (tmp / "h").glob("*.pth")}
+    require(len(accs) == 3 and left == keep,
+            f"keep_checkpoints=1 left {sorted(left)} of {sorted(accs)}; the "
+            f"rule names {sorted(keep)}")
+    recs = [json.loads(x) for x in
+            (tmp / "h" / "metrics.jsonl").read_text().splitlines()]
+    require([r["phase"] for r in recs] == ["Train", "Test"] * 3,
+            f"metrics.jsonl phases {[r['phase'] for r in recs]}")
+    db = json.loads((tmp / "experiments.json").read_text())
+    require("h" in db and "activities_acc" in db["h"]["best_result"],
+            f"experiments.json: {sorted(db)}")
+    traces = sorted(prof.glob("*.json"))
+    require(len(traces) == 1, f"profile_dir holds {traces}")
+    text = traces[0].read_text()
+    symbols = ("roi_align_kernel", "roi_align_bwd_kernel",
+               "max_pool_2x2_kernel", "max_pool_2x2_bwd_kernel")
+    missing = [s for s in symbols if s not in text]
+    require(not on_card or not missing,
+            f"the trace names no {missing}")
+    log(f"[infra] keep_checkpoints=1 over 3 epochs left {sorted(left)} (the "
+        f"newest and the best accuracy's, as prune_checkpoints' rule names; "
+        f"saved {sorted(accs)}); metrics.jsonl {len(recs)} records "
+        f"(Train, Test per epoch); experiments.json holds 'h'; profile_dir "
+        f"trace {traces[0].name} ({traces[0].stat().st_size / 2 ** 20:.1f} "
+        f"MiB) names {[s for s in symbols if s in text]}")
+    log(f"[infra] housekeeping done in {time.time() - t0:.2f} s")
+
+    # -- e. the raw-RoI TCE pieces, card against CPU ----------------------
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(SEED + 157)
+    rng = np.random.RandomState(SEED + 158)
+    B, N, K, D = 2, 12, 5, 512
+    roi = torch.from_numpy(rng.randn(B * T, N, K, K, D).astype(np.float32))
+    ctx = torch.from_numpy(rng.randn(B * T, 45, 80, 256).astype(np.float32))
+    feats = torch.from_numpy(rng.randn(B * T, N, 1024).astype(np.float32))
+    xy = rng.uniform(0, 70, (B, T * N, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(2, 10, (B, T * N, 2))], -1).astype(np.float32))
+    raw = tce.MultiHeadLayerContextEncoding(
+        D, 256, gen, num_heads=2, num_layers=2, num_features_context=256,
+        crop_size=K).eval()
+    bil = tce.MultiHeadSTBilinear(1024, 256, 2, gen, T=T).eval()
+
+    def pieces(device, dtype=torch.float32):
+        with torch.no_grad():
+            mask = tce.generate_spatial_mask(boxes.to(device), 0.3, 45)
+            return dict(
+                raw=raw.to(device, dtype)(roi.to(device, dtype),
+                                          ctx.to(device, dtype)).cpu(),
+                bilinear=bil.to(device, dtype)(feats.to(device, dtype),
+                                               mask).cpu(),
+                mask=mask.cpu())
+
+    # The attention over 3600 cells is peaked (logits of ~16 std), so f32
+    # summation order alone moves the output by ~1e-4 of its largest
+    # value: the card is held to the CPU's own distance from a float64 run
+    # (at most twice it, or 1e-5 of max |y|), the card-CPU gap reported.
+    f64 = pieces(cpu, torch.float64)
+    want = pieces(cpu)
+    tce_err = {}
+    if on_card:
+        with no_tf32():
+            got = pieces(dev)
+        require(torch.equal(got["mask"], want["mask"])
+                and torch.equal(f64["mask"], want["mask"]),
+                "generate_spatial_mask differs on the card or in float64")
+        for k in ("raw", "bilinear"):
+            scale = float(f64[k].abs().max())
+            tce_err[k] = {
+                "card_cpu": float((got[k] - want[k]).abs().max()) / scale,
+                "card_f64": float((got[k].double() - f64[k]).abs().max())
+                / scale,
+                "cpu_f64": float((want[k].double() - f64[k]).abs().max())
+                / scale}
+            e = tce_err[k]
+            require(e["card_f64"] <= max(2 * e["cpu_f64"], 1e-5),
+                    f"{k}: the card is {e['card_f64']:.3g} of max |y| from "
+                    f"float64, the CPU {e['cpu_f64']:.3g}")
+        log(f"[infra] raw-RoI TCE (2 heads x 2 layers, NFC 256, crops "
+            f"[{B * T},{N},{K},{K},{D}] over the [{B * T},45,80,256] context) "
+            f"and the bilinear attention (2 heads over {T * N} tokens of "
+            f"1024, distance mask of {float(want['mask'].float().mean()):.3f}"
+            f" suppressed), f32 (TF32 off), distance from a float64 CPU run "
+            f"in units of its max |y|: card "
+            f"{tce_err['raw']['card_f64']:.3g} and "
+            f"{tce_err['bilinear']['card_f64']:.3g}, CPU "
+            f"{tce_err['raw']['cpu_f64']:.3g} and "
+            f"{tce_err['bilinear']['cpu_f64']:.3g} (card <= max(2 x CPU, "
+            f"1e-5)); card against CPU {tce_err['raw']['card_cpu']:.3g} and "
+            f"{tce_err['bilinear']['card_cpu']:.3g} (reported); masks equal")
+    numbers["tce"] = tce_err
+    log(f"[infra] raw-RoI TCE done in {time.time() - t0:.2f} s")
+    log(f"[infra] done in {time.time() - t_all:.2f} s")
+    return dict(counts={f"infra_{k}": v for k, v in counts.items()},
+                numbers=numbers)
+
+
 def derived_counts(c, steps: int, step_T: int, eval_calls: int,
                    eval_T: int, eval_batch=None):
     """Launches of ``steps`` training steps of clips of ``step_T`` frames
@@ -4011,6 +4545,11 @@ def main() -> int:
         ckpt_copy = shutil.move(export_ckpt, Path(tmp) / export_ckpt.name)
         export_run = export_path(dev, Path(tmp), str(ckpt_copy), smi,
                                  reset_counts, read_counts)
+
+    # -- 15. the training infrastructure -----------------------------------
+    with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        infra_run = training_infra_path(dev, Path(tmp), smi, reset_counts,
+                                        read_counts)
     log(f"[total] {time.time() - t_all:.1f} s")
 
     def launches(name):
@@ -4031,7 +4570,9 @@ def main() -> int:
                                      **{path: c[name] for path, c in
                                         backbone_run["counts"].items()},
                                      **{path: c[name] for path, c in
-                                        export_run["counts"].items()}}}
+                                        export_run["counts"].items()},
+                                     **{path: c[name] for path, c in
+                                        infra_run["counts"].items()}}}
 
     def baseline_shapes(kernel):
         return {f"{k[0]}x{k[1]}": {

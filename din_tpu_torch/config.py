@@ -86,6 +86,12 @@ class Config:
     train_dropout_prob: float = 0.3
     weight_decay: float = 0.0
     max_epoch: int = 30
+    # max_epoch counts epochs from the start epoch (reference semantics,
+    # train_net.py:100, where the start is always 1); on auto_resume that
+    # means "N more epochs", which would extend a repeatedly preempted run.
+    # train_to_epoch is an absolute last epoch (consistent with the absolute
+    # epoch keys of lr_plan) and overrides max_epoch (din_tpu/config.py:85-89)
+    train_to_epoch: Optional[int] = None
     test_interval_epoch: int = 1
 
     # experiment control (reference config.py:74-81)
@@ -141,6 +147,13 @@ class Config:
     # SACRF + BiUTE's halting loss weight (reference config.py:102-103)
     halting_penalty: float = 1e-4
 
+    # micro-batches per optimizer update: the batch is split into this many
+    # equal micro-batches, each takes its forward and a backward of its loss
+    # / grad_accum_steps (BatchNorm statistics carried micro-batch to
+    # micro-batch), and Adam steps once on the averaged gradient; batch_size
+    # must be divisible by it (din_tpu/config.py:157)
+    grad_accum_steps: int = 1
+
     # dtype of the backbone's convolutions; parameters and the head are f32
     compute_dtype: str = "bfloat16"
     frame_chunk: Optional[int] = None    # frames per backbone micro-batch
@@ -157,6 +170,21 @@ class Config:
     packed_frames_path: Optional[str] = None  # store of decoded frames
     # (data/packed.py; `python -m din_tpu_torch.data.packed`), read in
     # place of the JPEGs; takes precedence over decode_cache_mb
+
+    # diagnostics and run control (din_tpu/config.py:193-203)
+    measure_mad: bool = False            # MAD diagnostic on the DIN eval
+    profile_dir: Optional[str] = None    # torch.profiler trace of the
+    # first epoch written here (utils/profiling.py)
+    debug_nans: bool = False             # anomaly mode with NaN checks
+    # and a finite-loss check in each step, for the run only
+    auto_resume: bool = False            # resume the newest resumable
+    # checkpoint in result_path (train/checkpoint.py newest_resumable)
+    graceful_preemption: bool = True     # SIGTERM -> save the full state at
+    # the next step boundary and return (train/preempt.py); pair with
+    # auto_resume to survive spot or maintenance reclaims
+    keep_checkpoints: int = 0            # keep the newest K regular stage-2
+    # files (+ the best-accuracy one; _preempt files are always kept); 0 =
+    # keep all like the reference (train/checkpoint.py prune_checkpoints)
 
     # derived by init_config()
     result_path: Optional[str] = None

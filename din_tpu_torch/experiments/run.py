@@ -36,6 +36,20 @@ test split and trains nothing (run.py:94-103):
         --preset volleyball_stage2_dynamic --data-path data/volleyball/videos \
         --stage2-model-path result/exp/stage2_epoch3_91.20%.pth --eval-only
 
+A run that may be preempted: a fixed ``--exp-name``, and ``--auto-resume``
+on every launch.  SIGTERM makes the running epoch save its full state at
+the next step boundary (``stage2_epoch{E}_preempt.pth``) and return; the
+next launch continues that epoch at its next batch, bit for bit on the
+CPU.  ``--train-to-epoch`` makes the last epoch absolute, so relaunches
+finish the plan instead of adding ``--max-epoch`` each time;
+``--grad-accum-steps k`` splits each batch into k micro-batches with one
+Adam step on their averaged gradient:
+
+    python -m din_tpu_torch.experiments.run \
+        --preset volleyball_stage2_dynamic --data-path data/volleyball/videos \
+        --exp-name flagship --auto-resume --train-to-epoch 30 \
+        --batch-size 4 --grad-accum-steps 2
+
 The Collective Activity path (T=10, 13 actors): stage 1 is Inception-v3
 (``--preset collective_stage1``); stage 2 is ResNet-18, so its stage 1 is
 ``collective_stage1().replace(backbone="res18", out_size=(15, 23),
@@ -86,7 +100,20 @@ def config_from_args(argv=None):
                    help="one eval pass on the loaded weights and exit, no "
                         "training")
     p.add_argument("--result-root", default=None)
-    p.add_argument("--exp-name", default=None)
+    p.add_argument("--exp-name", default=None,
+                   help="fixed result dir name (required for "
+                        "--auto-resume across relaunches; default is "
+                        "timestamped)")
+    p.add_argument("--auto-resume", action="store_true",
+                   help="resume the newest checkpoint in the result dir "
+                        "(incl. SIGTERM _preempt saves — train/preempt.py)")
+    p.add_argument("--train-to-epoch", type=int, default=None,
+                   help="absolute stop epoch (overrides max_epoch; pair "
+                        "with --auto-resume so relaunches complete the "
+                        "original plan)")
+    p.add_argument("--grad-accum-steps", type=int, default=None,
+                   help="micro-batches per optimizer update (large-batch "
+                        "gradients at micro-batch memory)")
     p.add_argument("--device", default=None,
                    help="default: the card (cuda); 'cpu' only when asked")
     args = p.parse_args(argv)
@@ -121,6 +148,12 @@ def config_from_args(argv=None):
         overrides["result_root"] = args.result_root
     if args.exp_name:
         overrides["exp_name"] = args.exp_name
+    if args.auto_resume:
+        overrides["auto_resume"] = True
+    if args.train_to_epoch is not None:
+        overrides["train_to_epoch"] = args.train_to_epoch
+    if args.grad_accum_steps is not None:
+        overrides["grad_accum_steps"] = args.grad_accum_steps
     return cfg.replace(**overrides), args
 
 

@@ -176,11 +176,15 @@ class DynamicPersonInference(nn.Module):
                            conv.stride, conv.padding, conv.dilation,
                            conv.groups).permute(0, 2, 3, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B,T,N,C] -> [B,T,N,C]."""
+    def forward(self, x: torch.Tensor, return_mad: bool = False):
+        """x [B,T,N,C] -> [B,T,N,C]; with ``return_mad`` also the MAD
+        nodes, the last sampling ratio's samples [B,T,N,k2,C] before their
+        weighted sum (the walk's with ``parallel_inference``;
+        din_tpu/heads/din.py:167-226)."""
         B, T, N, C = x.shape
         k2 = self.kernel_size[0] * self.kernel_size[1]
         ratio_features = []
+        mad = None
         for ratio in self.sampling_ratio:
             key = str(ratio)
             plain_pos = (_pos_0(T, N, self.kernel_size, ratio, self.stride,
@@ -200,11 +204,13 @@ class DynamicPersonInference(nn.Module):
                 # (dynamic_infer_module.py:285-341)
                 ft_plain = _integer_sample(x, plain_pos, self.kernel_size,
                                            ratio)
+                mad = ft_walk
                 ft = (ft_plain * scale.to(ft_plain.dtype)).sum(3) \
                     + ft_walk.mean(3)
             else:
                 ft = ft_walk if self.dynamic_sampling else _integer_sample(
                     x, plain_pos, self.kernel_size, ratio)
+                mad = ft
                 ft = (ft * scale.to(ft.dtype)).sum(3) if self.scale_factor \
                     else ft.mean(3)
             ratio_features.append(ft)
@@ -214,7 +220,8 @@ class DynamicPersonInference(nn.Module):
             out = (stacked * self.beta.to(stacked.dtype)).sum(-1)
         else:
             out = stacked.mean(-1)
-        return self.hidden_weight(out)
+        out = self.hidden_weight(out)
+        return (out, mad) if return_mad else out
 
 
 class MultiDynamicInference(nn.Module):
@@ -230,12 +237,16 @@ class MultiDynamicInference(nn.Module):
                                    **kwargs)
             for ks in kernel_sizes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        total = None
+    def forward(self, x: torch.Tensor, return_mad: bool = False):
+        """The fields' sum; with ``return_mad`` also the last field's MAD
+        nodes (din_tpu/heads/din.py:246-259)."""
+        total = mad = None
         for dim in self.DIMlist:
-            ft = dim(x)
+            ft = dim(x, return_mad=return_mad)
+            if return_mad:
+                ft, mad = ft
             total = ft if total is None else total + ft
-        return total
+        return (total, mad) if return_mad else total
 
 
 class HierarchicalDynamicInference(nn.Module):
@@ -266,7 +277,8 @@ class HierarchicalDynamicInference(nn.Module):
         self.DPI_2 = DynamicPersonInference(
             in_dim, generator, kernel_size=tuple(kernel_sizes[1]), **kwargs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B,T,N,C] -> [B,T,N,C]."""
+    def forward(self, x: torch.Tensor, return_mad: bool = False):
+        """x [B,T,N,C] -> [B,T,N,C]; with ``return_mad`` also DPI_2's MAD
+        nodes (din_tpu/heads/din.py:287-306)."""
         ft = self.dropout(torch.relu(self.hier_LN(self.DPI_1(x))))
-        return self.DPI_2(ft)
+        return self.DPI_2(ft, return_mad=return_mad)

@@ -105,7 +105,13 @@ class DynamicVolleyball(_DynamicModel):
     """images [B,T,H,W,3] uint8, boxes [B,T,N,4] -> {'activities': [B,G]}.
     The DIN head is ``cfg.kernel_sizes``' fields summed, or the two stacked
     fields of ``HierarchicalDynamicInference`` with
-    ``cfg.hierarchical_inference``."""
+    ``cfg.hierarchical_inference``.  With ``return_mad`` the output also
+    holds the DIN head's MAD nodes, ``mad_features`` [B,T,N,k2,C], and their
+    centres, the head's input ``mad_center`` [B,T,N,C]
+    (din_tpu/models/dynamic.py:73-95); it is the only model that returns
+    them (``returns_mad``)."""
+
+    returns_mad = True
 
     def __init__(self, cfg, generator: torch.Generator):
         super().__init__(cfg, generator)
@@ -122,8 +128,11 @@ class DynamicVolleyball(_DynamicModel):
                                             generator)
         self._freeze_backbone()
 
-    def _readout(self, feats: torch.Tensor) -> Dict[str, torch.Tensor]:
-        graph = self.DPI(feats)
+    def _readout(self, feats: torch.Tensor, return_mad: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+        graph = self.DPI(feats, return_mad=return_mad)
+        if return_mad:
+            graph, mad = graph
         # _din_readout: res18 puts the LayerNorm before the residual, every
         # other backbone after it (infer_model.py:203-216)
         if self.cfg.backbone == "res18":
@@ -132,12 +141,17 @@ class DynamicVolleyball(_DynamicModel):
             states = torch.relu(self.dpi_nl(graph + feats))
         states = self.dropout_global(states)
         pooled = states.amax(dim=2)                            # [B,T,C]
-        return {"activities": self.fc_activities(pooled).mean(dim=1)}
+        out = {"activities": self.fc_activities(pooled).mean(dim=1)}
+        if return_mad:
+            out["mad_features"] = mad
+            out["mad_center"] = feats
+        return out
 
     def forward(self, images: torch.Tensor, boxes: torch.Tensor,
-                bboxes_num: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
-        return self._readout(self._actor_features(images, boxes))
+                bboxes_num: Optional[torch.Tensor] = None,
+                return_mad: bool = False) -> Dict[str, torch.Tensor]:
+        return self._readout(self._actor_features(images, boxes),
+                             return_mad)
 
 
 class DynamicTCEVolleyball(DynamicVolleyball):
@@ -153,6 +167,7 @@ class DynamicTCEVolleyball(DynamicVolleyball):
 
     num_heads_context = 4
     num_features_context = 128
+    returns_mad = False             # din_tpu's forward takes no return_mad
 
     def __init__(self, cfg, generator: torch.Generator):
         _DynamicModel.__init__(self, cfg, generator)

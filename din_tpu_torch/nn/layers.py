@@ -18,6 +18,7 @@ init, zero biases.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -126,6 +127,20 @@ class SeededDropout(nn.Module):
         self.p = float(p)
         self.seed = int(seed)
         self.generator = None
+
+    def get_rng_state(self) -> Optional[torch.Tensor]:
+        """The generator's state, or None while no mask has been drawn."""
+        return None if self.generator is None else self.generator.get_state()
+
+    def set_rng_state(self, state: Optional[torch.Tensor],
+                      device: torch.device) -> None:
+        """Continue from ``state`` on ``device``; None leaves the generator
+        unused, to be seeded at its first mask."""
+        if state is None:
+            self.generator = None
+            return
+        self.generator = torch.Generator(device=device)
+        self.generator.set_state(state)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:

@@ -24,7 +24,9 @@ collective model's one field: ``DPI.*``; the hierarchical head:
 ``DPI.DPI_1.*``, ``DPI.hier_LN.*``, ``DPI.DPI_2.*``), ``dpi_nl``,
 ``multilayer_head_embfeature_context_encoding.CET.{k}.*``, ``fc_activities``;
 for a stage-1 Basenet ``backbone.*``, ``fc_emb``, ``fc_actions``,
-``fc_activities``.
+``fc_activities``; for the raw-RoI TCE and bilinear modules of
+``heads/tce.py``, which no model holds, the module's own keys (``CET.{k}.*``
+with ``downsample1``/``downsample2``; ``bilinear_list.{i}.*``).
 
 ``jax_train_state_to_torch`` carries a JAX training run into the port:
 optax ``scale_by_adam``'s ``mu``/``nu``/``count`` become torch Adam's
@@ -94,6 +96,69 @@ def _tce(d, prefix, out, num_heads=4):
         _ln(v["layernorm2"], f"{key}layernorm2", out)
         _lin(v["FFN_1"], f"{key}FFN.0", out)
         _lin(v["FFN_2"], f"{key}FFN.3", out)
+
+
+def _conv1x1(d, key, out):
+    """A Dense over channels -> a 1x1 conv."""
+    out[f"{key}.weight"] = _np(d["kernel"]).T[:, :, None, None]
+    out[f"{key}.bias"] = _np(d["bias"])
+
+
+def _raw_tce(d, prefix, out):
+    """One raw-RoI ``ContextEncoding``: layer 1's ``downsample1``,
+    ``downsample2`` and ``emb_roi``, whose input din_tpu flattens
+    position-major ``(i, j, c)`` and the reference channel-major ``(c, i,
+    j)`` (the inverse of tests/test_reference_oracle.py ``_raw_tce_port``);
+    a later layer's ``downsample`` and ``emb_roi``; the shared tail."""
+    if "downsample1" in d:
+        _conv1x1(d["downsample1"], f"{prefix}downsample1", out)
+        _conv1x1(d["downsample2"], f"{prefix}downsample2", out)
+        kernel = _np(d["emb_roi"]["kernel"])           # [K*K*NFC, NFC]
+        nfc = kernel.shape[1]
+        K = int(round(np.sqrt(kernel.shape[0] / nfc)))
+        out[f"{prefix}emb_roi.weight"] = kernel.T.reshape(
+            nfc, K, K, nfc).transpose(0, 3, 1, 2).reshape(nfc, -1)
+        out[f"{prefix}emb_roi.bias"] = _np(d["emb_roi"]["bias"])
+    else:
+        _conv1x1(d["downsample"], f"{prefix}downsample", out)
+        _lin(d["emb_roi"], f"{prefix}emb_roi", out)
+    _ln(d["layernorm1"], f"{prefix}layernorm1", out)
+    _ln(d["layernorm2"], f"{prefix}layernorm2", out)
+    _lin(d["FFN_1"], f"{prefix}FFN.0", out)
+    _lin(d["FFN_2"], f"{prefix}FFN.3", out)
+
+
+def _stbilinear(d, prefix, out):
+    """One ``STBilinearMessagePassing``: ``U``, ``V``, ``w_a``, ``W_e2``,
+    ``layernorm``, ``W_e1``."""
+    for name in ("U", "V", "W_e2", "W_e1"):
+        _lin(d[name], f"{prefix}{name}", out)
+    out[f"{prefix}w_a"] = _np(d["w_a"])
+    _ln(d["layernorm"], f"{prefix}layernorm", out)
+
+
+def _tce_pieces(params) -> Dict[str, np.ndarray]:
+    """The params of one of din_tpu/heads/tce.py's modules that no model
+    holds (``MultiHeadLayerContextEncoding``, ``ContextEncoding``,
+    ``MultiHeadSTBilinear``, ``STBilinearMessagePassing``) or of a
+    ``MultiHeadTCE`` alone -> that port module's ``state_dict``."""
+    out: Dict[str, np.ndarray] = {}
+    if "CET_0_0" in params:
+        heads = 1 + max(int(k.split("_")[2]) for k in params)
+        if "downsample1" not in params["CET_0_0"]:
+            _tce(params, "", out, heads)
+            return out
+        for k, v in params.items():
+            i, j = (int(s) for s in k.split("_")[1:])
+            _raw_tce(v, f"CET.{i * heads + j}.", out)
+    elif "emb_roi" in params:
+        _raw_tce(params, "", out)
+    elif "U" in params:
+        _stbilinear(params, "", out)
+    else:
+        for k, v in params.items():
+            _stbilinear(v, f"bilinear_list.{k.split('_')[1]}.", out)
+    return out
 
 
 def _lstm(d, key, out, suffix=""):
@@ -214,7 +279,11 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg,
     -> the port's ``state_dict`` as numpy arrays.  The stage-1 embedding
     ``embed/fc_emb_1`` is the Basenet's ``fc_emb`` (ref_export.py:313-334).
     Without ``batch_stats`` HiGCIN's head BatchNorms get no buffers (the
-    Adam moments of ``jax_train_state_to_torch`` have none)."""
+    Adam moments of ``jax_train_state_to_torch`` have none).  The params of
+    one of din_tpu/heads/tce.py's raw-RoI or bilinear modules, which no
+    model holds, give that port module's ``state_dict`` (``cfg`` unused)."""
+    if "trunk" not in params:
+        return _tce_pieces(params)
     K = cfg.crop_size[0]
     D = cfg.emb_features
     out: Dict[str, np.ndarray] = {}

@@ -16,14 +16,28 @@ A backbone's ``state_dict`` holds its BatchNorm buffers (``running_mean``,
 ``running_var``, ``num_batches_tracked``), so the component file and the
 graft carry them, as din_tpu's carry ``batch_stats``.
 Reading the JAX package's msgpack ``.ckpt`` files is not ported.
+
+Preemption (din_tpu/train/engine.py:493-513): ``save_preempt_state`` writes
+``stage{N}_epoch{E}_preempt.pth``, the stage-2 layout plus ``step`` (the
+steps done of epoch E + 1) and ``dropout_rng`` (each ``SeededDropout``
+generator's state by module name, None where none has drawn yet), in both
+stages, since stage 1's regular files hold no optimizer.
+``load_resume_state`` restores it, or a regular stage-2 file (step 0, no
+generator states: the generators restart from their seeds, as din_tpu's
+regular files carry no PRNG key).  ``newest_resumable`` picks the file
+``auto_resume`` continues from, ``prune_checkpoints`` the regular files
+``keep_checkpoints`` deletes (din_tpu/train/checkpoint.py:183-212).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+import re
+from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from din_tpu_torch.nn.layers import SeededDropout
 
 
 def _save(obj, path: str) -> None:
@@ -40,19 +54,89 @@ def save_state(path: str, epoch: int, model: torch.nn.Module,
            "optimizer": optimizer.state_dict()}, path)
 
 
-def load_state(path: str, model: torch.nn.Module,
-               optimizer: Optional[torch.optim.Optimizer] = None) -> int:
-    """Restores parameters and BatchNorm buffers, and the Adam state unless
-    ``optimizer`` is None (serving ignores it), in place; returns the
-    epoch.  Strict: a parameter or buffer of the model that the file lacks,
-    or a tensor of the file that the model lacks, raises, so a model never
-    serves half-random weights (din_tpu/train/checkpoint.py:171-174).  A
+def save_preempt_state(path: str, epoch: int, step: int,
+                       model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer) -> None:
+    """The full state of a run preempted after ``step`` steps of epoch
+    ``epoch`` + 1 (``epoch`` is the last complete one)."""
+    _save({"epoch": epoch, "step": step, "state_dict": model.state_dict(),
+           "optimizer": optimizer.state_dict(),
+           "dropout_rng": {name: m.get_rng_state()
+                           for name, m in model.named_modules()
+                           if isinstance(m, SeededDropout)}}, path)
+
+
+def load_resume_state(path: str, model: torch.nn.Module,
+                      optimizer: Optional[torch.optim.Optimizer] = None
+                      ) -> Tuple[int, int, Optional[Dict]]:
+    """Restores a stage-2 file or a ``_preempt`` file in place: parameters
+    and buffers, the Adam state unless ``optimizer`` is None (serving
+    ignores it) and, from a ``_preempt`` file, the dropout generators'
+    states, set on the model's ``SeededDropout`` modules on the device of
+    its parameters.  Returns (epoch, the steps done of the next epoch (0
+    for a regular file), the generators' states or None).  Strict: a
+    parameter or buffer of the model that the file lacks, or a tensor of
+    the file that the model lacks, raises, so a model never serves
+    half-random weights (din_tpu/train/checkpoint.py:171-174).  A
     reference full-model ``.pth`` has this layout too and loads by name."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state["state_dict"], strict=True)
     if optimizer is not None:
         optimizer.load_state_dict(state["optimizer"])
-    return int(state["epoch"])
+    rng = state.get("dropout_rng")
+    if rng is not None:
+        device = next(model.parameters()).device
+        for name, m in model.named_modules():
+            if isinstance(m, SeededDropout):
+                m.set_rng_state(rng[name], device)
+    return int(state["epoch"]), int(state.get("step", 0)), rng
+
+
+def load_state(path: str, model: torch.nn.Module,
+               optimizer: Optional[torch.optim.Optimizer] = None) -> int:
+    """``load_resume_state``'s epoch."""
+    return load_resume_state(path, model, optimizer)[0]
+
+
+def newest_resumable(result_path: str, training_stage: int) -> Optional[str]:
+    """The newest resumable ``.pth`` in ``result_path``, or None
+    (din_tpu/train/engine.py:253-266).  Stage 2 saves its full state every
+    eval; stage 1's regular saves are component files, so only its
+    ``_preempt`` files qualify.  A ``_preempt`` file carries the epoch
+    number of that epoch's regular save but holds later work (the next
+    epoch's first steps), so it wins a tie."""
+    ckpts = [f for f in os.listdir(result_path) if f.endswith(".pth")]
+    if training_stage == 1:
+        ckpts = [f for f in ckpts if "_preempt" in f]
+    ckpts = sorted(ckpts,
+                   key=lambda f: (int(f.split("epoch")[1].split("_")[0]),
+                                  "_preempt" in f))
+    return os.path.join(result_path, ckpts[-1]) if ckpts else None
+
+
+def prune_checkpoints(result_path: str, stage: int, keep: int) -> List[str]:
+    """Deletes all but the newest ``keep`` regular files
+    ``stage{stage}_epoch{E}_{acc}%.pth`` and the one of the best accuracy
+    (the later epoch on a tie); ``_preempt`` files and other stages' files
+    stay.  ``keep`` <= 0 deletes nothing (the reference keeps every file,
+    train_net.py:120-128).  Returns the deleted names."""
+    pat = re.compile(r"^stage%d_epoch(\d+)_([0-9.]+)%%\.pth$" % stage)
+    entries = []
+    for f in os.listdir(result_path):
+        m = pat.match(f)
+        if m:
+            entries.append((int(m.group(1)), float(m.group(2)), f))
+    if keep <= 0 or len(entries) <= keep:
+        return []
+    entries.sort()                                  # by epoch
+    protected = {max(entries, key=lambda e: (e[1], e[0]))[2]}
+    protected.update(f for _, _, f in entries[-keep:])
+    removed = []
+    for _, _, f in entries:
+        if f not in protected:
+            os.remove(os.path.join(result_path, f))
+            removed.append(f)
+    return removed
 
 
 def save_stage1_components(path: str, model: torch.nn.Module) -> None:

@@ -1,9 +1,14 @@
-"""Logging of the training loop (port of din_tpu/utils/logging.py:17-82;
-reference utils.py:101-129)."""
+"""Logging of the training loop (port of din_tpu/utils/logging.py:17-117;
+reference utils.py:101-158): the human log ``log.txt``, a machine-readable
+``metrics.jsonl`` beside it (one JSON object per reported epoch and phase)
+and the experiment db ``experiments.json`` under ``result_root`` (JSON where
+the reference writes a pickle)."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -25,9 +30,33 @@ def show_config(cfg) -> None:
     print_log(cfg.log_path, "======================End=======================")
 
 
+def _jsonable(v):
+    if hasattr(v, "tolist"):
+        return v.tolist()
+    if isinstance(v, (np.floating, np.integer)):
+        return v.item()
+    return v
+
+
+def append_metrics_jsonl(log_path: Optional[str], phase: str,
+                         info: dict) -> None:
+    """One JSON object ``{"phase": ..., **info}`` (arrays as nested lists)
+    appended to ``metrics.jsonl`` beside ``log_path``: the stream a monitor
+    tails (din_tpu/utils/logging.py:41-54)."""
+    if log_path is None:
+        return
+    path = os.path.join(os.path.dirname(log_path), "metrics.jsonl")
+    rec = {"phase": phase}
+    rec.update({k: _jsonable(v) for k, v in info.items()})
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
 def show_epoch_info(phase: str, log_path: Optional[str], info: dict) -> None:
     """Per-epoch metric report: accuracy, loss, time, throughput, the
-    confusion matrix and MPCA."""
+    confusion matrix, MPCA and, when measured, MAD; and its
+    ``metrics.jsonl`` record."""
+    append_metrics_jsonl(log_path, phase, info)
     print_log(log_path, "")
     if phase == "Test":
         print_log(log_path, "====> %s at epoch #%d" % (phase, info["epoch"]))
@@ -47,4 +76,43 @@ def show_epoch_info(phase: str, log_path: Optional[str], info: dict) -> None:
     if "activities_MPCA" in info:
         print_log(log_path,
                   "Activities MPCA:{:.2f}%".format(info["activities_MPCA"]))
+    if "MAD" in info:
+        print_log(log_path, "MAD:{:.4f}".format(info["MAD"]))
     print_log(log_path, "\n")
+
+
+def log_final_exp_result(log_path: str, data_path: str,
+                         exp_result: dict) -> None:
+    """The final summary appended to ``log_path`` (the config without its
+    bookkeeping fields, the best result, the total hours) and the run's
+    entry ``{exp_name: {"best_result", "total_time"}}`` merged into the
+    JSON db ``data_path`` (din_tpu/utils/logging.py:83-117)."""
+    no_display_cfg = {
+        "num_workers", "use_gpu", "use_multi_gpu", "device_list",
+        "batch_size_test", "test_interval_epoch", "train_random_seed",
+        "result_path", "log_path", "device",
+    }
+    cfg = exp_result["cfg"]
+    with open(log_path, "a") as f:
+        print("\n\n", file=f)
+        print("=====================Config=====================", file=f)
+        for field in dataclasses.fields(cfg):
+            if field.name not in no_display_cfg:
+                print(field.name, ": ", getattr(cfg, field.name), file=f)
+        print("=====================Result======================", file=f)
+        print("Best result:", file=f)
+        print(exp_result["best_result"], file=f)
+        print("Cost total %.4f hours." % (exp_result["total_time"],), file=f)
+        print("======================End=======================", file=f)
+
+    db = {}
+    if os.path.exists(data_path):
+        with open(data_path) as f:
+            db = json.load(f)
+    db[cfg.exp_name] = {
+        "best_result": {k: v for k, v in exp_result["best_result"].items()
+                        if not hasattr(v, "shape")},
+        "total_time": exp_result["total_time"],
+    }
+    with open(data_path, "w") as f:
+        json.dump(db, f, indent=2)

@@ -136,7 +136,9 @@ def test_eval_only_on_din_tpu_weights_gives_din_tpu_eval(tree, tiny,
                                   want["activities_conf"])
     assert sorted(got) == sorted(want)
     assert got["activities_MPCA"] == want["activities_MPCA"]
-    assert os.listdir(tmp_path / "port") == ["log.txt"]
+    # no checkpoint: the log and its metrics stream only
+    assert sorted(os.listdir(tmp_path / "port")) == [
+        "log.txt", "metrics.jsonl"]
     log = (tmp_path / "port" / "log.txt").read_text()
     assert "====> Test at epoch #0" in log and "Train at epoch" not in log
 
@@ -164,7 +166,9 @@ def test_eval_only_reproduces_the_eval_of_a_port_checkpoint(tree, tiny,
     assert info["epoch"] == 1
     for key in ("loss", "activities_acc", "activities_MPCA"):
         assert info[key] == evals[0][key], key
-    assert os.listdir(tmp_path / "score") == ["log.txt"]
+    # no checkpoint: the log and its metrics stream only
+    assert sorted(os.listdir(tmp_path / "score")) == [
+        "log.txt", "metrics.jsonl"]
 
 
 def test_test_before_train_logs_an_eval_at_epoch_0(tree, tiny, tmp_path,
@@ -200,4 +204,6 @@ def test_run_cli_takes_the_three_new_flags(tree, tiny, tmp_path):
         None, 0.0, False)
     info = run.main(argv)
     assert info["epoch"] == 0 and np.isfinite(info["loss"])
-    assert os.listdir(tmp_path / "flags") == ["log.txt"]
+    # no checkpoint: the log and its metrics stream only
+    assert sorted(os.listdir(tmp_path / "flags")) == [
+        "log.txt", "metrics.jsonl"]

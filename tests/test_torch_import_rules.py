@@ -86,7 +86,7 @@ def _tiny_cfg():
 
 @pytest.mark.parametrize("entry",
                          ["build_model", "Predictor", "main", "profile",
-                          "export", "ExportedPredictor"])
+                          "export", "ExportedPredictor", "head_report"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch,
                                                      tmp_path):
     import io
@@ -111,6 +111,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch,
             profile_serving.main(["--requests", "1"])
         elif entry == "export":
             export_serving.main(["--out", str(tmp_path / "model.pt2")])
+        elif entry == "head_report":
+            from din_tpu_torch.utils import profiling
+            profiling.main(["--head", "BiUTE"])
         else:   # an artifact of the card, read up to its header
             buf = io.BytesIO()
             with zipfile.ZipFile(buf, "w") as z:
