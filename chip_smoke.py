@@ -18,18 +18,23 @@ Phases, each timed, any failure exits non-zero:
    frame and an odd 7x9 map (f32 and bf16, random and tie-heavy inputs, a
    non-contiguous incoming gradient; bit-equal), K1 ``roi_align`` and K1b
    ``roi_align_bwd`` on a [20,22,40,512] map with 12 boxes per frame
-   including border, outside and zero-area boxes (against the plain
-   versions on the card: f32 within 1e-5, resp. 1e-5 of max|df| for K1b,
-   whose plain version adds with atomics there; bf16 within one bf16 ulp),
-   and K1b against its plain version run on the CPU bit for bit in f32 and
-   bf16, two launches and a channel-major g bit-equal to each other; and
-   K1 and K1b at the collective path's shapes, a [20,15,23,512] ResNet-18
-   map with 13 person-sized boxes a frame, one on the border and 4
-   zero-padded (the same tolerances, f32 and bf16; the padded boxes give 0
-   in K1 and add nothing in K1b; K1b bit-equal to its plain version on the
+   including border, outside and zero-area boxes (K1 bit-equal to its plain
+   version on the card in f32 and bf16; K1b within 1e-5 of max|df| of its
+   plain version on the card, which adds with atomics there, plus one bf16
+   ulp in bf16, and bit-equal to it run on the CPU in f32 and bf16, two
+   launches and a channel-major g bit-equal to each other); K1 bit-equal
+   in f32 and bf16 at the maps of the collective path, Inception-v3 (the
+   collective [80,57,87,288] with 13 boxes, 4 padded, and the Volleyball
+   [20,87,157,288]), ResNet-50 [20,23,40,2048] and AlexNet [20,21,39,256],
+   and, with the edge boxes, on a [20,22,40,100] map (C no multiple of
+   the kernel's 16-byte vector) and from a feature pointer off a 16-byte
+   boundary (the kernel's scalar tail); K1b at the collective path's
+   shapes, a [20,15,23,512] ResNet-18 map with 13 person-sized boxes a
+   frame, one on the border and 4 zero-padded (the padded boxes give 0 in
+   K1 and add nothing in K1b; K1b bit-equal to its plain version on the
    CPU); and K1 and K1b at the baselines' shapes, a [20,23,40,512]
    ResNet-18 map of 720x1280 frames with 12 person-sized boxes a frame,
-   with 5x5 and with HiGCIN's 7x7 crops (the same tolerances);
+   with 5x5 and with HiGCIN's 7x7 crops (the same checks);
 3. full-width serving of the flagship preset ``volleyball_stage2_dynamic``
    (VGG-16, 720x1280, T=10, N=12, bf16 backbone compute, f32 weights and
    head) through ``Predictor(pad_to=2)`` with seeded random weights: three
@@ -81,7 +86,9 @@ Phases, each timed, any failure exits non-zero:
    the model takes with a gradient; for K1 and K1b the wrapper and the
    launch alone, and for K1b the copy of a channel-major gradient; K1 and
    K1b also at the collective shapes and at the baselines' shapes, 5x5
-   and 7x7, of phase 2);
+   and 7x7, of phase 2; for K1 at each of them also its device time from
+   ``torch.profiler`` and ``F.grid_sample`` at the same sample centres, the
+   same reads and writes but not the same function);
 8. Volleyball on disk: the host's CPU count, whether ``jpeglib.h`` and PIL
    exist and the decoder in use (a native build that fails where
    ``jpeglib.h`` exists fails the phase); a Volleyball tree the smoke writes
@@ -124,7 +131,9 @@ Phases, each timed, any failure exits non-zero:
    and its pack: stage 2 from each (batches on the card bit-equal to the
    loader's, the pack's first batch and step-1 loss equal the JPEGs'), and
    ``--eval-only`` of the JPEG run's checkpoint; launch counts of every run
-   against ``derived_counts`` (K2, K2b and K3 0);
+   against ``derived_counts`` (K2, K2b and K3 0); two runs of 2
+   ``collective_stage2_dynamic`` steps at batch 2 from one state bit-equal
+   in losses, parameters and Adam moments;
 10. serving phase 4's trained flagship checkpoint: the stage-2 ``.pth``
    ``train_net`` wrote and its reference-ordered copy, each through
    ``Predictor.from_checkpoint(pad_to=2)``, answer a 1-clip and a 3-clip
@@ -213,8 +222,8 @@ Phases, each timed, any failure exits non-zero:
    ``train/checkpoint.py``, ``utils/meters.py``, ``utils/logging.py``,
    ``utils/profiling.py``, ``heads/tce.py``) on the flagship at full width
    with random weights: (a) one step on 4 clips whole and one at
-   ``grad_accum_steps=2`` from the same state (dropout 0,
-   ``cudnn.deterministic``, both in 5-frame backbone chunks, so that
+   ``grad_accum_steps=2`` from the same state (dropout 0, both in 5-frame
+   backbone chunks, so that
    cuDNN's bf16 convolutions see the same shapes): losses within rtol
    1e-5, counters and confusion equal, parameters within
    ``check_params``' one-step bounds, launches those of one bs4 step and
@@ -229,12 +238,12 @@ Phases, each timed, any failure exits non-zero:
    uninterrupted run after step 2, then ``auto_resume``, which must log
    "resuming at epoch 1, step 2", start from the file's weights, Adam
    state and generator bit for bit, train steps 3 and 4 on the first
-   run's batches 3 and 4 (launch counts derived), end with its generator
-   state and with no parameter more than 2 lr per step from it
-   (``check_params``, ulps=0; the share beyond 2e-5 reported, as phase 6
-   reports stage 1's); the gaps of its losses, parameters and Adam
-   moments are reported beside those between the two uninterrupted runs
-   (atomics make two runs on the card differ); (c) MAD: an eval with
+   run's batches 3 and 4 (launch counts derived) and end with its generator
+   state; the second uninterrupted run and the resumed run are bit-equal
+   to the first in losses, parameters and Adam moments (a training step
+   sums in a fixed order), and so are two runs of 2
+   ``collective_stage2_dynamic`` steps at batch 2 from one state; (c) MAD:
+   an eval with
    ``measure_mad`` at phase 6's geometry on the card against the CPU
    (within 1e-5 relative), and at full width (finite, its launches those
    of an eval without MAD, its ms against one without, in turns); (d)
@@ -373,10 +382,10 @@ def roi_sampled_bytes(features: torch.Tensor, boxes: torch.Tensor,
 def check_roi_kernels(feats: torch.Tensor, boxes: torch.Tensor, crop,
                       dgen: torch.Generator) -> dict:
     """K1 and K1b against their plain versions on the map ``feats``
-    [F,H,W,C] (f32) with ``boxes`` [F,N,4], in f32 and bf16: K1 within 1e-5
-    (f32) or 1 bf16 ulp, K1b within 1e-5 of max|df| of the plain version on
-    the card (plus 1 bf16 ulp in bf16) and bit-equal to it run on the CPU.
-    Returns the largest errors by name."""
+    [F,H,W,C] (f32) with ``boxes`` [F,N,4], in f32 and bf16: K1 bit-equal
+    to the plain version on the card, K1b within 1e-5 of max|df| of the
+    plain version on the card (plus 1 bf16 ulp in bf16) and bit-equal to it
+    run on the CPU.  Returns the largest errors by name."""
     from din_tpu_torch.ops.roi_align import (roi_align, roi_align_bwd,
                                              roi_align_bwd_ref,
                                              roi_align_ref)
@@ -386,16 +395,8 @@ def check_roi_kernels(feats: torch.Tensor, boxes: torch.Tensor, crop,
     for dtype, tag, bits in ((torch.float32, "f32", torch.int32),
                              (torch.bfloat16, "bf16", torch.int16)):
         f_dt = feats.to(dtype)
-        got, ref = roi_align(f_dt, boxes, crop), roi_align_ref(f_dt, boxes,
-                                                                crop)
-        torch.cuda.synchronize()
-        diff = (got.float() - ref.float()).abs()
-        tol = 1e-5 if dtype == torch.float32 else bf16_ulp(
-            torch.maximum(got.float().abs(), ref.float().abs()))
-        require(bool((diff <= tol).all()), f"roi_align {tag} at "
-                f"{list(feats.shape)} crop {crop}: max |err| "
-                f"{diff.max().item()}")
-        errs["k1_" + tag] = diff.max().item()
+        errs["k1_" + tag] = k1_bits(f_dt, boxes, crop,
+                                    f"{list(feats.shape)} crop {crop}")
         g = torch.randn((*boxes.shape[:2], *crop, feats.shape[-1]),
                         generator=dgen, device=feats.device).to(dtype)
         got = roi_align_bwd(g, boxes, hw, dtype)
@@ -419,7 +420,9 @@ def check_roi_kernels(feats: torch.Tensor, boxes: torch.Tensor, crop,
 def roi_times(feats: torch.Tensor, boxes: torch.Tensor, crop,
               dgen: torch.Generator, flush: torch.Tensor) -> dict:
     """CUDA-event times of K1 and K1b (wrappers) and their plain versions
-    on ``feats`` [F,H,W,C] bf16 with ``boxes``, beside their bounds: K1
+    on ``feats`` [F,H,W,C] bf16 with ``boxes``, beside their bounds, and
+    K1's ``k1_yardsticks`` (``k1_launch_ms``, ``k1_device_ms``,
+    ``k1_grid_sample_ms``): K1
     reads each distinct feature row a sample in range touches, the boxes,
     and writes the output, 11 operations per sample in range and channel
     (4 corner reads blended); K1b reads g's rows of the samples in range
@@ -439,7 +442,9 @@ def roi_times(feats: torch.Tensor, boxes: torch.Tensor, crop,
     k1_bytes = roi_sampled_bytes(feats, boxes, crop, (ys, xs))
     k1b_bytes = (in_range * C * g.element_size() + boxes.numel() * 4
                  + feats.numel() * feats.element_size())
+    k1y = k1_yardsticks(feats, boxes, crop, flush)
     return dict(
+        **{"k1_" + k: v for k, v in k1y.items()},
         k1_ms=time_cuda(lambda: roi_align(feats, boxes, crop), 100, flush),
         k1_plain=time_cuda(lambda: roi_align_ref(feats, boxes, crop), 100,
                            flush),
@@ -453,6 +458,111 @@ def roi_times(feats: torch.Tensor, boxes: torch.Tensor, crop,
                       8 * in_range * C / F32_FLOPS_PER_S) * 1e3,
         k1_mb=k1_bytes / 1e6, k1b_mb=k1b_bytes / 1e6, in_range=in_range,
         samples=ys.shape[0] * ys.shape[1] * crop[0] * crop[1])
+
+
+def k1_bits(feats: torch.Tensor, boxes: torch.Tensor, crop,
+            what: str) -> float:
+    """K1 against ``roi_align_ref`` on the card on ``feats`` in its dtype:
+    bit for bit (the kernel rounds its blend op by op in the plain
+    version's order).  Returns the largest |difference|, 0."""
+    from din_tpu_torch.ops.roi_align import roi_align, roi_align_ref
+
+    bits = torch.int32 if feats.dtype == torch.float32 else torch.int16
+    got, ref = roi_align(feats, boxes, crop), roi_align_ref(feats, boxes,
+                                                            crop)
+    torch.cuda.synchronize()
+    n = int((got.view(bits) != ref.view(bits)).sum())
+    require(n == 0, f"roi_align {what} {feats.dtype}: {n} of {ref.numel()} "
+            f"values differ from roi_align_ref")
+    return float((got.float() - ref.float()).abs().max())
+
+
+def k1_yardsticks(feats: torch.Tensor, boxes: torch.Tensor, crop,
+                  flush: torch.Tensor) -> dict:
+    """K1 on ``feats`` [F,H,W,C] with ``boxes`` (f32, contiguous): the
+    launch alone with its output made beforehand (CUDA events, mean of
+    100), its device time from ``torch.profiler`` (mean of 20 launches:
+    an event pair around a kernel of a few microseconds is close to the
+    events' resolution), and ``F.grid_sample`` (bilinear, zero padding,
+    ``align_corners=True``) of the NCHW view of the same map at the same
+    sample centres: the same reads and writes, not the same function (it
+    differs at the border, where RoIAlign's sample is 0 as a whole)."""
+    import torch.nn.functional as F
+
+    from din_tpu_torch.ops import native
+    from din_tpu_torch.ops.roi_align import _sample_grid
+
+    Fr, H, W, C = feats.shape
+    N = boxes.shape[1]
+    out = torch.empty((Fr, N, *crop, C), dtype=feats.dtype,
+                      device=feats.device)
+    lib, stream = native.library(), native.current_stream(feats)
+    code = native.dtype_code(feats.dtype)
+
+    def bare():
+        native.check(lib.din_roi_align(
+            feats.data_ptr(), boxes.data_ptr(), out.data_ptr(), Fr, H, W, C,
+            N, *crop, code, stream), "roi_align")
+
+    launch_ms = time_cuda(bare, 100, flush)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            flush.zero_()
+            bare()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "roi_align_kernel" in e.key]
+    require(events, "torch.profiler recorded no roi_align_kernel")
+    device_us = sum(e.device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    ys, xs = _sample_grid(boxes, crop)
+    gy = (2 * ys / (H - 1) - 1)[:, :, :, None].expand(-1, -1, -1, crop[1])
+    gx = (2 * xs / (W - 1) - 1)[:, :, None, :].expand(-1, -1, crop[0], -1)
+    grid = torch.stack([gx, gy], -1).reshape(Fr, N * crop[0], crop[1],
+                                             2).to(feats.dtype)
+    xn = feats.permute(0, 3, 1, 2)
+    grid_ms = time_cuda(lambda: F.grid_sample(
+        xn, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+        100, flush)
+    return dict(launch_ms=launch_ms, device_ms=device_us / launches / 1e3,
+                grid_sample_ms=grid_ms)
+
+
+def two_steps_bit_equal(cfg, dev, seed: int, what: str) -> None:
+    """Two runs of 2 training steps of ``cfg`` at batch 2 from one state
+    (seeded random weights, the DIN head's convs too; one synthetic batch):
+    the losses, parameters and Adam moments bit-equal (``train_step`` sums
+    in a fixed order)."""
+    from din_tpu_torch.data.loader import to_device
+    from din_tpu_torch.data.synthetic import make_synthetic_batch
+    from din_tpu_torch.models.registry import build_model
+    from din_tpu_torch.train import engine
+    from din_tpu_torch.train.optim import make_optimizer
+
+    cfg = cfg.replace(batch_size=2)
+    gen = torch.Generator().manual_seed(seed)
+    start = build_model(cfg, device=dev, generator=gen)
+    _randomize_din(start, gen)
+    batch = to_device(make_synthetic_batch(
+        cfg, 2, rng=np.random.RandomState(seed)), dev)
+    runs = []
+    for _ in range(2):
+        model = copy.deepcopy(start)
+        opt = make_optimizer(cfg, model)
+        losses = [float(engine.train_step(model, opt, batch, cfg)["loss"])
+                  for _ in range(2)]
+        runs.append((losses, _train_snapshot(model, opt)))
+        del model, opt
+    (la, a), (lb, b) = runs
+    differ = [k for part in ("params", "moments") for k in a[part]
+              if not torch.equal(a[part][k], b[part][k])]
+    require(la == lb and not differ and a["moments"],
+            f"{what}: two runs of 2 steps from one state differ: losses "
+            f"{la} and {lb}, {len(differ)} tensors {differ[:4]}")
+    log(f"[determinism] {what} ({cfg.backbone}, {cfg.image_size[0]}x"
+        f"{cfg.image_size[1]}, T={cfg.num_frames}, batch 2): two runs of 2 "
+        f"steps from one state bit-equal: losses {la}, {len(a['params'])} "
+        f"parameters and {len(a['moments'])} Adam moments")
 
 
 @contextlib.contextmanager
@@ -1663,6 +1773,9 @@ def collective_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
             and abs(info["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
             and not tap.train_batches, "--eval-only does not reproduce the eval")
     check_counts("cad_eval_only", read_counts(), e_expect, how)
+    two_steps_bit_equal(shrink(PRESETS["collective_stage2_dynamic"]().replace(
+        image_size=image_size, out_size=out_size, load_backbone_stage2=False,
+        data_path="synthetic")), dev, SEED + 91, "[cad] collective stage 2")
     log(f"[cad] done in {time.time() - t0:.2f} s [{smi}]")
     return dict(counts=counts, numbers=numbers)
 
@@ -2476,13 +2589,16 @@ def backbones_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
             kernels[key] = dict(shape=list(shape), boxes=nb,
                                 zero_padded=pad, errs=errs, times=times)
             log(f"[backbones] K1 and K1b at {key} {list(shape)} x {nb} "
-                f"boxes ({pad} zero-padded), crop 5x5: K1 vs plain max |err| "
-                f"f32 {errs['k1_f32']:.3g} (<= 1e-5), bf16 "
-                f"{errs['k1_bf16']:.3g} (<= 1 ulp); K1b vs plain on the card "
+                f"boxes ({pad} zero-padded), crop 5x5: K1 bit-equal to plain "
+                f"in f32 and bf16; K1b vs plain on the card "
                 f"f32 {errs['k1b_f32']:.3g}, bf16 {errs['k1b_bf16']:.3g} "
                 f"(1e-5 * max|df|, plus 1 ulp in bf16), bit-equal to the "
                 f"plain version on the CPU; bf16 times: K1 wrapper "
-                f"{times['k1_ms']:.4f} ms, bound {times['k1_bound']:.5f} ms "
+                f"{times['k1_ms']:.4f} ms, launch alone "
+                f"{times['k1_launch_ms']:.4f} ms, profiler device time "
+                f"{times['k1_device_ms']:.4f} ms, F.grid_sample "
+                f"{times['k1_grid_sample_ms']:.4f} ms, bound "
+                f"{times['k1_bound']:.5f} ms "
                 f"({times['k1_mb']:.2f} MB, {times['in_range']} of "
                 f"{times['samples']} samples in range), plain "
                 f"{times['k1_plain']:.4f} ms; K1b wrapper "
@@ -2999,7 +3115,6 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
     batch = to_device(make_synthetic_batch(
         acfg, 4, rng=np.random.RandomState(SEED + 152)), dev)
     runs = {}
-    deterministic = torch.backends.cudnn.deterministic
     for name, c in (("bs4", acfg.replace(frame_chunk=5)),
                     ("accum", acfg.replace(frame_chunk=5,
                                            grad_accum_steps=2)),
@@ -3012,14 +3127,8 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        # the first step with cuDNN's deterministic algorithms; the timed
-        # steps after it with the default flags
-        torch.backends.cudnn.deterministic = True
-        try:
-            m = engine.train_step(model, opt, batch, c)
-            sync()
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
+        m = engine.train_step(model, opt, batch, c)
+        sync()
         launched = read_counts()
         state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         timed = on_card and name.endswith("_default")
@@ -3062,8 +3171,8 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
         accum_ms=float(np.mean(db["ms"][-2:])),
         bs4_gib=da["peak"], accum_gib=db["peak"])
     log(f"[infra] accumulation at full width ({acfg.image_size[0]}x"
-        f"{acfg.image_size[1]}, T={T}, dropout 0, cudnn.deterministic, "
-        f"5-frame chunks): one step on 4 clips, once whole and once as "
+        f"{acfg.image_size[1]}, T={T}, dropout 0, 5-frame chunks): one step "
+        f"on 4 clips, once whole and once as "
         f"grad_accum_steps=2, from one state: loss "
         f"{float(a['metrics']['loss']):.7f} against "
         f"{float(b['metrics']['loss']):.7f} (rel {lerr:.3g} <= 1e-5), "
@@ -3072,7 +3181,7 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
         f"; with the default chunks (8 frames whole, 5 per micro-step) the "
         f"losses differ by {default_gap:.3g} (reported)")
     log(f"[infra] accumulation, default chunks: 3 steps after the first "
-        f"(default flags, host clock, synchronized, batch on the card): bs4 "
+        f"(host clock, synchronized, batch on the card): bs4 "
         f"{', '.join(f'{v:.1f}' for v in da['ms'])} ms, peak device memory "
         f"{da['peak']:.2f} GiB; grad_accum_steps=2 "
         f"{', '.join(f'{v:.1f}' for v in db['ms'])} ms, peak "
@@ -3081,18 +3190,14 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
     log(f"[infra] accumulation done in {time.time() - t0:.2f} s")
 
     # -- b. preemption and auto-resume through train_net ------------------
-    # Two uninterrupted runs on the card differ (atomics in the backward of
-    # the DIN head's gather and in cuDNN's), so the card's resumed run is
-    # checked by what it continues from: the resumed model, Adam state and
-    # generator equal the file's bit for bit before its first step, the
-    # file's generator equals the uninterrupted run's after step 2 (its
-    # offset depends on the draws alone), the resumed steps take that run's
-    # batches 3 and 4, and the generators end equal.  Its end state is held
-    # to the bounds of the card's own trajectory against the CPU (phase 6):
-    # no parameter more than 2 lr per step apart (check_params, ulps=0),
-    # the share beyond 2e-5 reported (conv1_1's few sums flip, as in phase
-    # 6's stage 1); its losses and Adam moments are reported, each beside
-    # the gap between the two uninterrupted runs.
+    # A training step sums in a fixed order (the DIN head's gather backward,
+    # cuDNN's deterministic algorithms), so the two uninterrupted runs are
+    # bit-equal in losses, parameters and Adam moments, and so is the
+    # resumed run: it starts from the file's model, Adam state and generator
+    # bit for bit, the file's generator equals the uninterrupted run's after
+    # step 2, the resumed steps take that run's batches 3 and 4, and the
+    # generators end equal.  The gaps stay reported, and check_params'
+    # bound of 2 lr per step (ulps=0) stays held.
     t0 = time.time()
     pcfg = base.replace(max_epoch=1)
     n_val = 2
@@ -3200,7 +3305,14 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
     expect(pcfg, "resumed run (2 steps and an eval)", counts["resume"], 2,
            -(-n_val // pcfg.test_batch_size))
     gaps = {}
-    for what, r in (("resumed", res), ("uninterrupted", u2)):
+    for what, r, losses in (("resumed", res, u1["losses"][2:]),
+                            ("uninterrupted", u2, u1["losses"])):
+        differ = [k for part in ("params", "moments") for k in u1[part]
+                  if not torch.equal(r[part][k], u1[part][k])]
+        require(r["losses"] == losses and not differ,
+                f"the {what} run is not bit-equal to the first "
+                f"uninterrupted run: losses {r['losses']} against {losses}, "
+                f"{len(differ)} tensors differ {differ[:4]}")
         pe, ps, pn = check_params(r["params"], u1["params"], range(1, 5), lr,
                                   f"{what} vs uninterrupted, params",
                                   share_bound=None)
@@ -3226,7 +3338,8 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
         f"generators end equal")
     for what, g in gaps.items():
         log(f"[infra] {what} against the first uninterrupted run after 4 "
-            f"steps: losses of steps 3, 4 rel {g['loss']:.3g}; params max "
+            f"steps: bit-equal in losses, parameters and Adam moments; "
+            f"losses of steps 3, 4 rel {g['loss']:.3g}; params max "
             f"|diff| {g['param']:.3g} (<= 8 lr), largest share beyond 2e-5 "
             f"{g['share']:.4f} ({g['share_name'] or '-'}); Adam moments max "
             f"|diff| {g['moment']:.3g}, at most {g['moment_rel']:.3g} of a "
@@ -3236,6 +3349,9 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
         f"{[round(v, 6) for v in u2['losses']]}, preempted "
         f"{[round(v, 6) for v in p['losses']]}")
     del u1, u2, p, res, payload
+    two_steps_bit_equal(shrink(PRESETS["collective_stage2_dynamic"]().replace(
+        load_backbone_stage2=False, data_path="synthetic")), dev, SEED + 159,
+        "[infra] collective stage 2")
     log(f"[infra] preemption done in {time.time() - t0:.2f} s")
 
     # -- c. MAD ------------------------------------------------------------
@@ -3625,24 +3741,46 @@ def main() -> int:
     feats32 = torch.randn((20, 22, 40, 512), generator=dgen, device=dev)
     kboxes = edge_boxes(20, 12, 22, 40, gen).to(dev)
     got = roi_align(feats32, kboxes, crop)
-    ref = roi_align_ref(feats32, kboxes, crop)
     torch.cuda.synchronize()
-    err32 = (got - ref).abs().max().item()
-    require(err32 <= 1e-5, f"roi_align f32 max |err| {err32} > 1e-5")
     require(bool((got[:, 3] == 0).all()), "fully-outside box is not 0")
     feats16 = feats32.bfloat16()
-    got = roi_align(feats16, kboxes, crop)
-    ref = roi_align_ref(feats16, kboxes, crop)
-    torch.cuda.synchronize()
-    diff = (got.float() - ref.float()).abs()
-    ulp = bf16_ulp(torch.maximum(got.float().abs(), ref.float().abs()))
-    require(bool((diff <= ulp).all()),
-            f"roi_align bf16 off by more than 1 ulp: max |err| "
-            f"{diff.max().item()}")
-    roi_err = diff.max().item()
-    log(f"[kernels] K1 roi_align vs plain at [20,22,40,512] x 12 boxes: "
-        f"f32 max |err| {err32:.3g} (<= 1e-5), bf16 max |err| {roi_err:.3g} "
-        f"(<= 1 bf16 ulp)")
+    roi_err = max(k1_bits(f, kboxes, crop, "[20,22,40,512] edge boxes")
+                  for f in (feats32, feats16))
+    log("[kernels] K1 roi_align vs plain at [20,22,40,512] x 12 edge boxes "
+        "(border, partly off, zero-area and fully outside boxes): bit-equal "
+        "in f32 and bf16; the fully outside box gives 0")
+    # K1 bit for bit at every other map the smoke runs it on, each with 5x5
+    # crops: the collective, Inception-v3 (480x720 Mixed_5d of 8 clips with
+    # 13 slots, 4 padded; 720x1280 Mixed_5d), ResNet-50 and AlexNet maps; a
+    # C that is no multiple of the 16-byte vector and a feature pointer off
+    # a 16-byte boundary (the kernel's scalar tail), with the edge boxes
+    k1_maps = {"collective": ((20, 15, 23, 512), 13, 4),
+               "inv3_collective": ((80, 57, 87, 288), 13, 4),
+               "inv3_volleyball": ((20, 87, 157, 288), 12, 0),
+               "res50": ((20, 23, 40, 2048), 12, 0),
+               "alex": ((20, 21, 39, 256), 12, 0)}
+    for key, (shape, nb, pad) in k1_maps.items():
+        f = torch.randn(shape, generator=dgen, device=dev)
+        b = cad_boxes(shape[0], nb, pad, shape[1], shape[2], gen).to(dev)
+        for f_dt in (f, f.bfloat16()):
+            k1_bits(f_dt, b, crop, f"{key} {list(shape)}")
+        del f, b, f_dt
+    c100 = torch.randn((20, 22, 40, 100), generator=dgen, device=dev)
+    for f_dt in (c100, c100.bfloat16(), feats32, feats16):
+        buf = torch.empty(f_dt.numel() + 8, dtype=f_dt.dtype, device=dev)
+        off = buf[1:1 + f_dt.numel()].view(f_dt.shape)
+        off.copy_(f_dt)
+        require(off.data_ptr() % 16 != 0, "the offset map is aligned")
+        for x, where in ((f_dt, ""), (off, ", pointer off 16 bytes")):
+            k1_bits(x, kboxes, crop, f"{list(f_dt.shape)} edge boxes{where}")
+    del c100, buf, off, f_dt, x
+    log(f"[kernels] K1 roi_align bit-equal to plain, f32 and bf16, 5x5, at "
+        + ", ".join(f"{k} {list(v[0])} x {v[1]} boxes ({v[2]} padded)"
+                    for k, v in k1_maps.items())
+        + "; and with the edge boxes at [20,22,40,100] (C no multiple of the "
+          "16-byte vector) and at [20,22,40,100] and [20,22,40,512] from a "
+          "feature pointer 1 element past a 16-byte boundary (the scalar "
+          "tail)")
 
     hw = tuple(feats32.shape[1:3])
     gb = torch.randn((20, 12, *crop, 512), generator=dgen, device=dev)
@@ -3717,21 +3855,13 @@ def main() -> int:
     chw = (15, 23)
     for dtype in (torch.float32, torch.bfloat16):
         f_dt = cfeats.to(dtype)
-        got, ref = roi_align(f_dt, cboxes, crop), roi_align_ref(f_dt, cboxes,
-                                                                 crop)
-        torch.cuda.synchronize()
-        diff = (got.float() - ref.float()).abs()
-        if dtype == torch.float32:
-            ok = diff.max().item() <= 1e-5
-        else:
-            ok = bool((diff <= bf16_ulp(torch.maximum(
-                got.float().abs(), ref.float().abs()))).all())
-        require(ok and bool((got[:, 9:] == 0).all()),
-                f"roi_align {dtype} at the collective shapes: max |err| "
-                f"{diff.max().item()}, padded boxes 0: "
-                f"{bool((got[:, 9:] == 0).all())}")
         tag = "f32" if dtype == torch.float32 else "bf16"
-        cad["k1_" + tag] = diff.max().item()
+        cad["k1_" + tag] = k1_bits(f_dt, cboxes, crop, "collective")
+        got = roi_align(f_dt, cboxes, crop)
+        torch.cuda.synchronize()
+        require(bool((got[:, 9:] == 0).all()),
+                f"roi_align {dtype} at the collective shapes: padded boxes "
+                f"are not 0")
         g = torch.randn((20, 13, *crop, 512), generator=dgen,
                         device=dev).to(dtype)
         got = roi_align_bwd(g, cboxes, chw, dtype)
@@ -3755,9 +3885,8 @@ def main() -> int:
                 f"version, padded boxes add {pad_only.abs().max().item()}")
         cad["k1b_" + tag] = diff.max().item()
     log(f"[kernels] K1 and K1b at the collective shapes [20,15,23,512] x 13 "
-        f"boxes (4 zero-padded per frame, one on the border): K1 vs plain "
-        f"max |err| f32 {cad['k1_f32']:.3g} (<= 1e-5), bf16 "
-        f"{cad['k1_bf16']:.3g} (<= 1 ulp), padded boxes give 0; "
+        f"boxes (4 zero-padded per frame, one on the border): K1 bit-equal "
+        f"to plain in f32 and bf16, padded boxes give 0; "
         f"K1b vs plain on the card max |err| f32 "
         f"{cad['k1b_f32']:.3g}, bf16 "
         f"{cad['k1b_bf16']:.3g} (against the f32 result; 1e-5 * "
@@ -3775,9 +3904,8 @@ def main() -> int:
                  for crop_b in ((5, 5), (7, 7))}
     log("[kernels] K1 and K1b at the baselines' shapes [20,23,40,512] x 12 "
         "person-sized boxes: " + "; ".join(
-            f"crop {k[0]}x{k[1]}: K1 vs plain max |err| f32 "
-            f"{e['k1_f32']:.3g} (<= 1e-5), bf16 {e['k1_bf16']:.3g} (<= 1 "
-            f"ulp); K1b vs plain on the card f32 {e['k1b_f32']:.3g}, bf16 "
+            f"crop {k[0]}x{k[1]}: K1 bit-equal to plain in f32 and bf16; "
+            f"K1b vs plain on the card f32 {e['k1b_f32']:.3g}, bf16 "
             f"{e['k1b_bf16']:.3g} (1e-5 * max|df|, plus 1 ulp in bf16)"
             for k, e in base_errs.items())
         + "; K1b bit-equal to the plain version on the CPU in f32 and bf16")
@@ -4364,18 +4492,19 @@ def main() -> int:
                    11 * k1_out / F32_FLOPS_PER_S) * 1e3
     # the launch alone, with the output made beforehand: the wrapper's own
     # work around it (checks, torch.empty) runs on the host
+    k1y = k1_yardsticks(feats, main_boxes, crop, flush)
     out = torch.empty((*main_boxes.shape[:2], *crop, feats.shape[-1]),
                       dtype=feats.dtype, device=dev)
     lib, stream = native.library(), native.current_stream(feats)
-    k1_bare = time_cuda(lambda: native.check(lib.din_roi_align(
-        feats.data_ptr(), main_boxes.data_ptr(), out.data_ptr(),
-        *feats.shape, main_boxes.shape[1], *crop,
-        native.DTYPE_BF16, stream), "roi_align"), 100, flush)
     log(f"[times] K1 {list(feats.shape)} bf16 x {main_boxes.shape[1]} boxes: "
-        f"wrapper {k1_ms:.4f} ms (launch alone {k1_bare:.4f} ms; the kernel "
+        f"wrapper {k1_ms:.4f} ms (launch alone {k1y['launch_ms']:.4f} ms, "
+        f"profiler device time {k1y['device_ms']:.4f} ms; the kernel "
         f"computes the sample grid), bound {k1_bound:.5f} ms "
-        f"({k1_bytes / 1e6:.2f} MB), plain {k1_plain:.4f} ms, no single "
-        f"PyTorch call computes it")
+        f"({k1_bytes / 1e6:.2f} MB; launch alone at "
+        f"{k1_bound / k1y['launch_ms']:.3f} of it), plain {k1_plain:.4f} ms; "
+        f"no single PyTorch call computes it: F.grid_sample at the same "
+        f"centres (the same reads and writes, not the same function) "
+        f"{k1y['grid_sample_ms']:.4f} ms [{smi}]")
     g = torch.randn(out.shape, generator=dgen, device=dev).bfloat16()
     k1b_ms = time_cuda(lambda: roi_align_bwd(g, main_boxes, (OH, OW),
                                              torch.bfloat16), 100, flush)
@@ -4441,9 +4570,14 @@ def main() -> int:
                + cf.numel() * cf.element_size())
     cad_times["k1b_bound"] = max(cbbytes / HBM_BYTES_PER_S,
                                  8 * c_in * 512 / F32_FLOPS_PER_S) * 1e3
+    cad_times.update({"k1_" + k: v for k, v in
+                      k1_yardsticks(cf, cb, crop, flush).items()})
     log(f"[times] K1 {list(cshape)} bf16 x 13 boxes (4 zero-padded; "
         f"{c_in} of {ys.shape[0] * ys.shape[1] * 25} samples in range): "
-        f"wrapper {cad_times['k1_ms']:.4f} ms, bound "
+        f"wrapper {cad_times['k1_ms']:.4f} ms, launch alone "
+        f"{cad_times['k1_launch_ms']:.4f} ms, profiler device time "
+        f"{cad_times['k1_device_ms']:.4f} ms, F.grid_sample "
+        f"{cad_times['k1_grid_sample_ms']:.4f} ms, bound "
         f"{cad_times['k1_bound']:.5f} ms ({cbytes / 1e6:.2f} MB), plain "
         f"{cad_times['k1_plain']:.4f} ms; K1b {[20, 13, *crop, 512]} bf16 -> "
         f"{list(cshape)}: wrapper {cad_times['k1b_ms']:.4f} ms, bound "
@@ -4461,7 +4595,10 @@ def main() -> int:
     for crop_b, bt in base_times.items():
         log(f"[times] K1 and K1b at [20,23,40,512] bf16 x 12 boxes, crop "
             f"{crop_b[0]}x{crop_b[1]} ({bt['in_range']} of {bt['samples']} "
-            f"samples in range): K1 wrapper {bt['k1_ms']:.4f} ms, bound "
+            f"samples in range): K1 wrapper {bt['k1_ms']:.4f} ms, launch "
+            f"alone {bt['k1_launch_ms']:.4f} ms, profiler device time "
+            f"{bt['k1_device_ms']:.4f} ms, F.grid_sample "
+            f"{bt['k1_grid_sample_ms']:.4f} ms, bound "
             f"{bt['k1_bound']:.5f} ms ({bt['k1_mb']:.2f} MB), plain "
             f"{bt['k1_plain']:.4f} ms; K1b wrapper {bt['k1b_ms']:.4f} ms, "
             f"bound {bt['k1b_bound']:.5f} ms ({bt['k1b_mb']:.2f} MB), plain "
@@ -4574,12 +4711,19 @@ def main() -> int:
                                      **{path: c[name] for path, c in
                                         infra_run["counts"].items()}}}
 
+    def yardsticks(kernel, t):
+        """K1's launch alone, profiler time and F.grid_sample, from ``t``."""
+        if kernel != "k1":
+            return {}
+        return {k: t["k1_" + k] for k in ("launch_ms", "device_ms",
+                                          "grid_sample_ms")}
+
     def baseline_shapes(kernel):
         return {f"{k[0]}x{k[1]}": {
             "shape": [20, 23, 40, 512], "boxes": 12, "crop": list(k),
             "max_abs_err": base_errs[k][kernel + "_bf16"],
             "ms": t[kernel + "_ms"], "plain_ms": t[kernel + "_plain"],
-            "bound_ms": t[kernel + "_bound"]}
+            "bound_ms": t[kernel + "_bound"], **yardsticks(kernel, t)}
             for k, t in base_times.items()}
 
     def backbone_shapes(kernel):
@@ -4590,7 +4734,8 @@ def main() -> int:
             "max_abs_err": k["errs"][kernel + "_bf16"],
             "ms": k["times"][kernel + "_ms"],
             "plain_ms": k["times"][kernel + "_plain"],
-            "bound_ms": k["times"][kernel + "_bound"]}
+            "bound_ms": k["times"][kernel + "_bound"],
+            **yardsticks(kernel, k["times"])}
             for key, k in backbone_run["kernels"].items()}
 
     kernels = [
@@ -4599,12 +4744,17 @@ def main() -> int:
          "replaces": "din_tpu/ops/roi_align.py:197", **launches("roi_align"),
          "max_abs_err": roi_err, "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None,
+         **yardsticks("k1", {"k1_" + k: v for k, v in k1y.items()}),
+         "grid_sample_is": "F.grid_sample at the same sample centres: the "
+                           "same reads and writes, not the same function "
+                           "(it differs at the border)",
          "collective": {"shape": [20, 15, 23, 512], "boxes": 13,
                         "zero_padded": 4,
                         "max_abs_err": cad["k1_bf16"],
                         "ms": cad_times["k1_ms"],
                         "plain_ms": cad_times["k1_plain"],
-                        "bound_ms": cad_times["k1_bound"]},
+                        "bound_ms": cad_times["k1_bound"],
+                        **yardsticks("k1", cad_times)},
          "baselines": baseline_shapes("k1"),
          "backbones": backbone_shapes("k1")},
         {"name": "max_pool_2x2", "route": "cuda",

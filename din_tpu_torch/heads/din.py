@@ -8,7 +8,11 @@ affinity (``scale_conv``) or their mean; ``hidden_weight`` projects the
 result.  The JAX package applies the bilinear blend as a one-hot matmul for
 the TPU's matrix unit (din.py:18-24); the port gathers the four corners, as
 the reference's ``_get_ft`` does, with the same corner, clamp and
-stop-gradient-floor math (din.py:90-104).
+stop-gradient-floor math (din.py:90-104).  The gather's gradient is the
+transposed one-hot product over the padded grid (``_TakeRows``), the form
+the JAX package computes the blend in, so that it sums in a fixed order:
+``torch.gather``'s own backward adds with atomics on the card, and two
+training runs from one state would part.
 
 ``p_conv`` and ``scale_conv`` run in IEEE float32 on the card, forward and
 backward (``ieee_conv2d``), as the JAX package runs them at
@@ -30,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from din_tpu_torch.nn.layers import SeededDropout, kaiming_normal_
-from din_tpu_torch.utils.precision import ieee_conv2d
+from din_tpu_torch.utils.precision import ieee_conv2d, ieee_f32_matmuls
 
 
 def _pos_k(kernel_size: Tuple[int, int], ratio: int,
@@ -73,10 +77,37 @@ def _padded_grid(x: torch.Tensor, kernel_size: Tuple[int, int], ratio: int):
     return xpad.reshape(B, Hp * Wp, C), Hp, Wp
 
 
+class _TakeRows(torch.autograd.Function):
+    """``torch.gather`` of whole rows, flat [B,P,C] at idx [B,M] ->
+    [B,M,C], with a backward that sums in a fixed order: the transposed
+    one-hot product onehot[B,M,P]^T @ g in IEEE float32.  ``gather``'s own
+    backward is a scatter-add, which on the card adds with atomics in an
+    order that changes from run to run; at the flagship the product is
+    [168 x 1080] @ [1080 x 128] a clip."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = flat.shape[1]
+        return torch.gather(flat, 1,
+                            idx[:, :, None].expand(-1, -1, flat.shape[-1]))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        onehot = (idx[:, :, None] == torch.arange(
+            ctx.rows, device=idx.device)).to(torch.float32)
+        with ieee_f32_matmuls():
+            d = torch.bmm(onehot.transpose(1, 2), g.float())
+        return d.to(g.dtype), None
+
+
 def _take(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """flat [B,P,C], idx [B,...] -> [B,...,C]."""
+    """flat [B,P,C], idx [B,...] -> [B,...,C]: the gather, bit for bit;
+    its gradient to ``flat`` sums in a fixed order (``_TakeRows``)."""
     B, C = flat.shape[0], flat.shape[-1]
-    out = torch.gather(flat, 1, idx.reshape(B, -1, 1).expand(-1, -1, C))
+    out = _TakeRows.apply(flat, idx.reshape(B, -1))
     return out.reshape(*idx.shape, C)
 
 

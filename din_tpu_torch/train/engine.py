@@ -99,6 +99,7 @@ from din_tpu_torch.train.preempt import PreemptionGuard
 from din_tpu_torch.utils.logging import (log_final_exp_result, print_log,
                                          show_config, show_epoch_info)
 from din_tpu_torch.utils.meters import MPCA, MADmeter, Timer
+from din_tpu_torch.utils.precision import deterministic_convs
 from din_tpu_torch.utils.profiling import profiler_trace
 
 
@@ -135,20 +136,25 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``cfg.grad_accum_steps`` micro-batches; returns the detached metrics
     (still on the device: reading them waits for it).  With
     ``cfg.debug_nans`` a non-finite loss raises ``FloatingPointError``
-    before its backward."""
+    before its backward.  Forward and backward run on cuDNN's
+    deterministic algorithms (``deterministic_convs``), and the DIN head's
+    gather has a backward that sums in a fixed order, so that two steps
+    from one state on the card are bit-equal, as din_tpu's XLA steps
+    are."""
     model.train()
     accum = max(int(cfg.grad_accum_steps or 1), 1)
     optimizer.zero_grad(set_to_none=True)
     parts = []
-    for mb in _micro_batches(batch, accum):
-        out = model(mb["images"], mb["boxes"], mb.get("bboxes_num"))
-        metrics = compute_losses(out, mb, cfg, cfg.training_stage == 2)
-        loss = metrics["loss"]
-        if cfg.debug_nans and not bool(torch.isfinite(loss)):
-            raise FloatingPointError(
-                f"non-finite loss {float(loss.detach())} (debug_nans)")
-        (loss if accum == 1 else loss / accum).backward()
-        parts.append({k: v.detach() for k, v in metrics.items()})
+    with deterministic_convs():
+        for mb in _micro_batches(batch, accum):
+            out = model(mb["images"], mb["boxes"], mb.get("bboxes_num"))
+            metrics = compute_losses(out, mb, cfg, cfg.training_stage == 2)
+            loss = metrics["loss"]
+            if cfg.debug_nans and not bool(torch.isfinite(loss)):
+                raise FloatingPointError(
+                    f"non-finite loss {float(loss.detach())} (debug_nans)")
+            (loss if accum == 1 else loss / accum).backward()
+            parts.append({k: v.detach() for k, v in metrics.items()})
     optimizer.step()
     return parts[0] if accum == 1 else combine_micro_metrics(parts)
 
@@ -225,7 +231,7 @@ def _setup_training(cfg, device=None):
             f"nodes (dynamic_volleyball, with any of its DIN heads); "
             f"{type(model).__name__} (stage {cfg.training_stage}, "
             f"{cfg.inference_module_name!r}) does not")
-    start_epoch, resume_step = 1, 0
+    start_epoch, resume_step, resumed = 1, 0, False
     if cfg.ref_checkpoint_path:
         skipped = load_reference_checkpoint(model, cfg.ref_checkpoint_path)
         print_log(cfg.log_path, "Loaded reference checkpoint %s (%d keys "
@@ -240,7 +246,7 @@ def _setup_training(cfg, device=None):
         elif resume:
             last, resume_step, _ = load_resume_state(cfg.stage2model, model,
                                                      optimizer)
-            start_epoch = last + 1
+            start_epoch, resumed = last + 1, True
             print_log(cfg.log_path, "Loading stage2 model: %s (resuming at "
                       "epoch %d%s)" % (cfg.stage2model, start_epoch,
                                        ", step %d" % resume_step
@@ -251,7 +257,7 @@ def _setup_training(cfg, device=None):
         # stage-1 preemption resume: its _preempt file holds the full state
         last, resume_step, _ = load_resume_state(cfg.stage2model, model,
                                                  optimizer)
-        start_epoch = last + 1
+        start_epoch, resumed = last + 1, True
         print_log(cfg.log_path, "Resuming stage1 from %s (epoch %d%s)"
                   % (cfg.stage2model, start_epoch,
                      ", step %d" % resume_step if resume_step else ""))
@@ -259,7 +265,10 @@ def _setup_training(cfg, device=None):
         load_pretrained_backbone(model, cfg.pretrained_backbone_path)
         print_log(cfg.log_path, "Loaded pretrained backbone: "
                   + cfg.pretrained_backbone_path)
-    if cfg.ref_checkpoint_path and cfg.ref_resume_optimizer:
+    if cfg.ref_checkpoint_path and cfg.ref_resume_optimizer and resumed:
+        print_log(cfg.log_path, "Kept the resumed optimizer state over the "
+                  "reference file's (resuming at epoch %d)" % start_epoch)
+    elif cfg.ref_checkpoint_path and cfg.ref_resume_optimizer:
         start_epoch = load_reference_optimizer(
             model, optimizer, cfg.ref_checkpoint_path, cfg) + 1
         print_log(cfg.log_path, "Adopted reference optimizer state "
@@ -281,8 +290,14 @@ def setup_training(cfg, device=None):
     ``cfg.load_stage2model`` is set, else a pretrained backbone
     (``cfg.pretrained_backbone_path``); last, with
     ``cfg.ref_resume_optimizer``, the reference file's Adam state, resuming
-    at its epoch + 1.  ``cfg.measure_mad`` on a model that does not return
-    MAD nodes raises ``ValueError``."""
+    at its epoch + 1, unless a resume file (``cfg.stage2model`` loaded, a
+    regular or a ``_preempt`` file) was loaded: then its Adam state, epoch,
+    step and dropout generators stand.  That epoch is a deliberate
+    difference from din_tpu, which adopts the reference file's Adam state
+    first and restores the resumed one over it, but takes its start epoch
+    from the reference file (din_tpu/train/engine.py:376, :420), so that a
+    resumed run repeats epochs (ROADMAP.md §3).  ``cfg.measure_mad`` on a
+    model that does not return MAD nodes raises ``ValueError``."""
     return _setup_training(cfg, device)[:3]
 
 

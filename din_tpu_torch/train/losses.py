@@ -15,6 +15,12 @@ import torch
 import torch.nn.functional as F
 
 
+def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """float32 one-hot rows by comparison (``F.one_hot`` scatters)."""
+    return (labels[..., None] == torch.arange(
+        num_classes, device=labels.device)).float()
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   class_weights: Optional[torch.Tensor] = None,
                   valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -23,7 +29,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     safe_labels = labels.long().clamp(0, logits.shape[-1] - 1)
     logp = F.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
+    # the true class's log-probability as a one-hot sum (exact: one term is
+    # not 0), whose backward is a product; gather's would be a scatter-add
+    nll = -(logp * _one_hot(safe_labels, logits.shape[-1])).sum(-1)
     if class_weights is not None:
         w = class_weights.to(nll.device)[safe_labels]
     else:
@@ -52,8 +60,8 @@ def confusion_matrix(logits: torch.Tensor, labels: torch.Tensor,
     """[K, K] float counts, rows = truth (cf. reference utils.py:217-264)."""
     pred = logits.argmax(dim=-1).reshape(-1)
     lab = labels.reshape(-1).long().clamp(0, num_classes - 1)
-    onehot_p = F.one_hot(pred, num_classes).float()
-    onehot_l = F.one_hot(lab, num_classes).float()
+    onehot_p = _one_hot(pred, num_classes)
+    onehot_l = _one_hot(lab, num_classes)
     if valid_mask is not None:
         onehot_l = onehot_l * valid_mask.reshape(-1, 1).float()
     return onehot_l.T @ onehot_p

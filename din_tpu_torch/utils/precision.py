@@ -1,4 +1,5 @@
-"""Full float32 convolutions on the card, whatever the process-wide flags.
+"""Full float32 convolutions and products, and deterministic cuDNN, on the
+card, whatever the process-wide flags.
 
 cuDNN runs float32 convolutions in TF32 by default
 (``torch.backends.cudnn.allow_tf32`` is True), which keeps a 10-bit
@@ -19,8 +20,14 @@ backward.  The port does the same:
   convs call it; bf16 convolutions are untouched by TF32 and keep the plain
   call.
 
-Nothing here changes another flag or anything on the CPU, where
-``ieee_conv2d`` equals autograd of ``F.conv2d``.
+``ieee_f32_matmuls()`` does the same for cuBLAS's float32 products (the
+DIN head's gather gradient, ``heads/din.py``), and ``deterministic_convs()``
+puts cuDNN on its deterministic algorithms for a training step
+(``train/engine.py`` ``train_step``).
+
+Each context restores the caller's flags after, and nothing here changes
+anything on the CPU, where ``ieee_conv2d`` equals autograd of
+``F.conv2d``.
 """
 
 from __future__ import annotations
@@ -39,6 +46,35 @@ def ieee_f32_convs():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def ieee_f32_matmuls():
+    """float32 matrix products in full float32 on the card (cuBLAS's TF32
+    off) for the code it wraps, the caller's setting restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms (``cudnn.deterministic`` on,
+    ``cudnn.benchmark`` off) for the code it wraps, the caller's flags
+    restored after.  Some of cuDNN's fastest backward algorithms add with
+    atomics, in an order that changes from run to run."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
 
 
 def _pair(v):

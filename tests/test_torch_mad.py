@@ -6,8 +6,9 @@ arrays: both are the same float64 numpy arithmetic, held within 1e-12.
 The MAD nodes and value of the flagship and its ``_multi`` and
 ``_hierarchical`` heads: the same seeded weights (perturbed, so the DIN
 walk leaves the integer grid) through din_tpu's ``make_mad_step`` and the
-port's eval pass with ``measure_mad``, at 64x96 frames, T=3, N=4, NFB 64,
-lite 16 in f32, on the AlexNet trunk (a 1x2 map of 256 channels): the MAD
+port's eval pass with ``measure_mad``, at 96x128 frames, T=3, N=4, NFB 64,
+lite 16 in f32, on the AlexNet trunk (a 2x3 map of 256 channels, two rows
+high so that the RoIs hit it and the nodes depend on the frames): the MAD
 nodes are the head's, and AlexNet keeps din_tpu's compiles inside the
 file's time budget (with VGG-16 the file took 47 s).  The eval set is 3
 clips at batch 2, so the second batch holds a padded clip that
@@ -40,10 +41,11 @@ from din_tpu_torch.utils import meters
 from din_tpu_torch.utils.meters import MADmeter
 from test_torch_train import _perturb, _torch_state
 from test_torch_threads import one_thread  # noqa: F401 (autouse)
+from test_torch_train_infra import assert_step_trains
 
-GEOM = dict(image_size=(64, 96), num_frames=3, num_boxes=4,
+GEOM = dict(image_size=(96, 128), num_frames=3, num_boxes=4,
             num_features_boxes=64, lite_dim=16, compute_dtype="float32",
-            test_batch_size=2, backbone="alex", out_size=(1, 2),
+            test_batch_size=2, backbone="alex", out_size=(2, 3),
             emb_features=256)
 CPU = torch.device("cpu")
 
@@ -126,6 +128,11 @@ def test_mad_nodes_and_value_match_jax(name):
         # [B, T*N, 1 + k2 of the last field, lite]
         assert nodes.shape == w.shape and nodes.shape[:2] == (2, 12)
         assert np.abs(nodes - w).max() <= 1e-5 * np.abs(w).max()
+    # the nodes depend on the frames: the first batch's two clips differ
+    for n in (want[0], engine.eval_step(model, {
+            k: torch.from_numpy(v) for k, v in batches[0].items()},
+            cfg)["mad_nodes"].numpy()):
+        assert np.abs(n[0] - n[1]).max() > 1e-3 * np.abs(n).max()
     info = engine.run_eval(model, val, cfg, 1, CPU)
     np.testing.assert_allclose(info["MAD"], meter.output_MAD(), rtol=1e-5)
     assert 0 < info["MAD"] < 2
@@ -149,3 +156,11 @@ def test_measure_mad_without_mad_nodes_raises_at_setup(name):
     with pytest.raises(ValueError, match="measure_mad needs a model"):
         engine.setup_training(cfg, "cpu")
     engine.setup_training(cfg.replace(measure_mad=False), "cpu")
+
+
+def test_a_step_trains_trunk_embedding_and_head():
+    """The geometry of the MAD tests trains the trunk, the embedding and
+    the DIN head: its RoIs hit the map."""
+    assert_step_trains(PRESETS["volleyball_stage2_dynamic"]().replace(
+        data_path="synthetic", batch_size=2, load_backbone_stage2=False,
+        num_workers=1, **GEOM))

@@ -4,7 +4,8 @@ din_tpu's tests/test_preempt.py to the port's ``train_net``).
 An uninterrupted run and a run stopped after its second step and then
 auto-resumed end bit for bit equal: parameters, BatchNorm buffers, Adam
 state and every dropout generator, with dropout 0.3 on, in stage 2 (the
-flagship on AlexNet at 64x96) and in stage 1 (its Basenet).  The stop comes
+flagship on AlexNet at 96x128, a 2x3 map the RoIs hit) and in stage 1 (its
+Basenet, on the same map).  The stop comes
 from a fake guard and once from a real SIGTERM the process sends itself
 after the second step.  Each epoch is exactly the 4 batches of an 8-clip
 training set at batch 2 (``return_dataset`` patched) and no step cap:
@@ -25,7 +26,7 @@ from din_tpu_torch.nn.layers import SeededDropout
 from din_tpu_torch.train import engine
 from din_tpu_torch.train.preempt import PreemptionGuard
 from test_torch_threads import one_thread  # noqa: F401 (autouse)
-from test_torch_train_infra import tiny_cfg
+from test_torch_train_infra import assert_step_trains, tiny_cfg
 
 
 class FakeGuard:
@@ -78,8 +79,8 @@ def _cfg(tmp_path, stage, **kw):
     if stage == 2:
         return tiny_cfg(tmp_path, **kw)
     return PRESETS["volleyball_stage1"]().replace(**dict(
-        dict(data_path="synthetic", backbone="alex", out_size=(1, 2),
-             emb_features=256, image_size=(64, 96), num_boxes=4,
+        dict(data_path="synthetic", backbone="alex", out_size=(2, 3),
+             emb_features=256, image_size=(96, 128), num_boxes=4,
              num_features_boxes=64, compute_dtype="float32", batch_size=2,
              num_workers=1, result_root=str(tmp_path), max_epoch=1,
              test_before_train=False), **kw))
@@ -154,6 +155,11 @@ def _interrupt_and_resume(tmp_path, monkeypatch, stage, stop, **kw):
     assert "resuming at epoch 1, step 2" in log or \
         "(epoch 1, step 2)" in log
     return whole, _snapshot(seen), saved
+
+
+@pytest.mark.parametrize("stage", [2, 1])
+def test_a_step_trains_trunk_embedding_and_head(tmp_path, stage):
+    assert_step_trains(_cfg(tmp_path, stage))
 
 
 @pytest.mark.parametrize("stage,stop", [(2, "fake"), (2, "sigterm"),

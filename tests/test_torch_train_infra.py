@@ -17,9 +17,13 @@ from din_tpu.experiments.presets import PRESETS as JAX_PRESETS
 from din_tpu.train.checkpoint import prune_checkpoints as jax_prune
 from din_tpu.train.engine import newest_resumable as jax_newest
 from din_tpu.utils import logging as jax_logging
+from din_tpu_torch.data.loader import BatchLoader, to_device
+from din_tpu_torch.data.synthetic import SyntheticDataset
 from din_tpu_torch.experiments import run
 from din_tpu_torch.experiments.presets import PRESETS
+from din_tpu_torch.models.registry import build_model
 from din_tpu_torch.train import engine
+from din_tpu_torch.train.optim import make_optimizer
 from din_tpu_torch.train.checkpoint import (newest_resumable,
                                             prune_checkpoints)
 from din_tpu_torch.utils import logging as port_logging
@@ -28,15 +32,43 @@ from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 def tiny_cfg(tmp_path, **kw):
     """The flagship at a size train_net runs in about a second on the CPU:
-    AlexNet (a 1x2 map) at 64x96, T=3, N=4, NFB 64, lite 16, f32, batch
-    2, synthetic clips, 16 eval clips at batch 8, no stage-1 graft."""
-    kw = dict(dict(data_path="synthetic", backbone="alex", out_size=(1, 2),
-                   emb_features=256, image_size=(64, 96), num_frames=3,
+    AlexNet (a 2x3 map) at 96x128, T=3, N=4, NFB 64, lite 16, f32, batch
+    2, synthetic clips, 16 eval clips at batch 8, no stage-1 graft.  The
+    map is two rows high so that the RoIs hit it: on a map one row high
+    every sample below its top row falls outside, the RoI features are 0,
+    and a step moves ``fc_activities.bias`` alone."""
+    kw = dict(dict(data_path="synthetic", backbone="alex", out_size=(2, 3),
+                   emb_features=256, image_size=(96, 128), num_frames=3,
                    num_boxes=4, num_features_boxes=64, lite_dim=16,
                    compute_dtype="float32", batch_size=2, test_batch_size=8,
                    num_workers=1, load_backbone_stage2=False,
                    result_root=str(tmp_path), max_epoch=1), **kw)
     return PRESETS["volleyball_stage2_dynamic"]().replace(**kw)
+
+
+def assert_step_trains(cfg):
+    """One ``train_step`` of ``cfg`` on synthetic clips gives non-zero
+    gradients to the trunk's first conv, to the actor embedding
+    (``fc_emb_1``; stage 1's ``fc_emb``) and to the head:
+    the DIN head's offset conv and projection in stage 2, which has one,
+    ``fc_activities.weight`` in stage 1."""
+    model = build_model(cfg, device="cpu")
+    batch = next(iter(BatchLoader(SyntheticDataset(cfg, seed=4),
+                                  cfg.batch_size, seed=0)))
+    engine.train_step(model, make_optimizer(cfg, model),
+                      to_device(batch, torch.device("cpu")), cfg)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    head = (["DPI.DIMlist.0.p_conv.1.weight",
+             "DPI.DIMlist.0.hidden_weight.weight"]
+            if cfg.training_stage == 2 else ["fc_activities.weight"])
+    emb = "fc_emb_1.weight" if cfg.training_stage == 2 else "fc_emb.weight"
+    for name in ["backbone.features.0.weight", emb] + head:
+        assert grads[name] is not None and bool(grads[name].abs().max() > 0), \
+            name
+
+
+def test_a_step_trains_trunk_embedding_and_head(tmp_path):
+    assert_step_trains(tiny_cfg(tmp_path))
 
 
 def test_train_to_epoch_is_the_absolute_last_epoch(tmp_path):
@@ -182,7 +214,9 @@ def test_debug_nans_raises_and_restores_anomaly_mode(tmp_path, monkeypatch):
         assert not torch.is_anomaly_check_nan_enabled()
     assert seen == [(True, True)]
     assert not torch.is_anomaly_enabled()
-    engine.train_net(tiny_cfg(tmp_path), 1, "cpu")
+    # the NaN step makes every weight NaN (the RoIs hit the map), and an
+    # eval would then sample the DIN grid at NaN offsets: no eval here
+    engine.train_net(tiny_cfg(tmp_path, test_interval_epoch=2), 1, "cpu")
     assert seen[-1] == (False, True)
 
 
