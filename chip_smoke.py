@@ -87,7 +87,8 @@ Phases, each timed, any failure exits non-zero:
    launch alone, and for K1b the copy of a channel-major gradient; K1 and
    K1b also at the collective shapes and at the baselines' shapes, 5x5
    and 7x7, of phase 2; for K1 at each of them also its device time from
-   ``torch.profiler`` and ``F.grid_sample`` at the same sample centres, the
+   ``torch.profiler`` (from a CUDA graph's replays where CUPTI records no
+   launch) and ``F.grid_sample`` at the same sample centres, the
    same reads and writes but not the same function);
 8. Volleyball on disk: the host's CPU count, whether ``jpeglib.h`` and PIL
    exist and the decoder in use (a native build that fails where
@@ -255,7 +256,32 @@ Phases, each timed, any failure exits non-zero:
    context, on the card and the CPU, each against a float64 CPU run: the
    card no farther from it than twice the CPU or 1e-5 of max |y| (the
    peaked attention over 3600 cells moves f32 results by ~1e-4 with the
-   summation order), the card-CPU gap reported.
+   summation order), the card-CPU gap reported;
+16. training on more than one rank (``parallel/``, one process each,
+   started by ``parallel/launch.py``; the earlier phases' card memory freed
+   first), flagship at full width with random weights, synthetic clips, 2
+   clips a rank: (a) one rank over NCCL: a step through
+   ``DistributedDataParallel`` with the port's summing hook bit-equal to
+   the plain step from one state, dropout on, then ``train_net`` (3 steps
+   at batch 2, an eval pass); then two gloo ranks sharing ``cuda:0``: (b)
+   the data-parallel step against one process's step of the same 4 clips,
+   both in 5-frame chunks, dropout 0 (loss within 1e-5 relative,
+   ``check_params``' one-step bounds, every rank bit-equal), the gap at
+   the default chunks reported, two steps with dropout on bit-equal, a
+   ZeRO-1 step bit-equal to the replicated one and each rank's Adam bytes;
+   (c) the collective ResNet-18 (live BatchNorm, its chunk statistics
+   reduced over the ranks) against one process, 5-frame chunks
+   (``ulps=2``, running statistics within 1e-4 of their largest |value|);
+   (d) frame parallel (one data group, 2 model ranks splitting its 20
+   frames, the RoI features gathered) against one process's step of the 2
+   clips; (e) ``train_net`` over 8 clips with SIGTERM to rank 1 alone
+   after its first step: both ranks stop there, one
+   ``stage2_epoch0_preempt.pth``, and the auto-resumed run is bit-equal to
+   an uninterrupted 2-rank run; (f) each rank's launches of each path
+   against ``derived_counts`` of one rank (``plan_calls``), the ``kernels``
+   line's ``ranks_*`` entries; (g) each rank's step time beside one
+   process's step of the 4 clips: two processes sharing one card, not a
+   scaling figure.
 
 The last lines are the kernels' JSON line, the card's nvidia-smi line and
 the result line ``{"ok": true, "device": {...}}``.  With no card, or run
@@ -353,6 +379,21 @@ def time_cuda(fn, iters: int, flush: torch.Tensor) -> float:
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def traced_step(step_fn) -> dict:
+    """``breakdown`` of one call of ``step_fn``, whose model is dropped
+    after it; traced again, up to 3 traces in all, while the profiler
+    records no device time (a trace on the card has once come back without
+    a kernel)."""
+    from din_tpu_torch.experiments.profile_training import breakdown
+
+    for attempt in range(3):
+        prof = breakdown(step_fn, 1)
+        if prof["busy_us"] > 0:
+            return prof
+        log(f"[profiler] trace {attempt + 1} of 3 recorded no device time")
+    raise RuntimeError("the profiler recorded no device time in 3 traces")
 
 
 def roi_sampled_bytes(features: torch.Tensor, boxes: torch.Tensor,
@@ -481,9 +522,9 @@ def k1_yardsticks(feats: torch.Tensor, boxes: torch.Tensor, crop,
                   flush: torch.Tensor) -> dict:
     """K1 on ``feats`` [F,H,W,C] with ``boxes`` (f32, contiguous): the
     launch alone with its output made beforehand (CUDA events, mean of
-    100), its device time from ``torch.profiler`` (mean of 20 launches:
+    100), its device time from ``kernel_device_ms`` (mean of 20 launches:
     an event pair around a kernel of a few microseconds is close to the
-    events' resolution), and ``F.grid_sample`` (bilinear, zero padding,
+    events' resolution) and how that was read, and ``F.grid_sample`` (bilinear, zero padding,
     ``align_corners=True``) of the NCHW view of the same map at the same
     sample centres: the same reads and writes, not the same function (it
     differs at the border, where RoIAlign's sample is 0 as a whole)."""
@@ -505,16 +546,10 @@ def k1_yardsticks(feats: torch.Tensor, boxes: torch.Tensor, crop,
             N, *crop, code, stream), "roi_align")
 
     launch_ms = time_cuda(bare, 100, flush)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            flush.zero_()
-            bare()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if "roi_align_kernel" in e.key]
-    require(events, "torch.profiler recorded no roi_align_kernel")
-    device_us = sum(e.device_time_total for e in events)
-    launches = sum(e.count for e in events)
+    device_ms, device_by = kernel_device_ms(
+        lambda s: native.check(lib.din_roi_align(
+            feats.data_ptr(), boxes.data_ptr(), out.data_ptr(), Fr, H, W, C,
+            N, *crop, code, s), "roi_align"), "roi_align_kernel", flush)
     ys, xs = _sample_grid(boxes, crop)
     gy = (2 * ys / (H - 1) - 1)[:, :, :, None].expand(-1, -1, -1, crop[1])
     gx = (2 * xs / (W - 1) - 1)[:, :, None, :].expand(-1, -1, crop[0], -1)
@@ -524,8 +559,55 @@ def k1_yardsticks(feats: torch.Tensor, boxes: torch.Tensor, crop,
     grid_ms = time_cuda(lambda: F.grid_sample(
         xn, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
         100, flush)
-    return dict(launch_ms=launch_ms, device_ms=device_us / launches / 1e3,
-                grid_sample_ms=grid_ms)
+    return dict(launch_ms=launch_ms, device_ms=device_ms,
+                device_ms_by=device_by, grid_sample_ms=grid_ms)
+
+
+def kernel_device_ms(launch, kernel: str, flush: torch.Tensor,
+                     n: int = 20) -> tuple:
+    """Mean device time in ms of one ``launch(stream)`` of ``kernel`` (a
+    substring of its symbol) on the current stream, ``flush`` written
+    before each launch, and how it was read: "profiler", from
+    ``torch.profiler`` over ``n`` launches, traced up to 3 times while
+    CUPTI records no launch of ``kernel`` (a trace on the card has once
+    come back without it); else "cuda graph", from CUDA events around
+    replays of a graph of ``n`` flushes and launches, less a graph of the
+    ``n`` flushes alone."""
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    for attempt in range(3):
+        stream = torch.cuda.current_stream().cuda_stream
+        with torch.profiler.profile(activities=[cuda]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                launch(stream)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        if events:
+            return (sum(e.device_time_total for e in events)
+                    / sum(e.count for e in events) / 1e3, "profiler")
+        log(f"[profiler] trace {attempt + 1} of 3 recorded no {kernel}")
+
+    def replay_ms(with_kernel: bool) -> float:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(n):
+                flush.zero_()
+                if with_kernel:
+                    launch(side.cuda_stream)
+        graph.replay()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(10):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 10
+
+    ms = (replay_ms(True) - replay_ms(False)) / n
+    require(ms > 0, f"{kernel}: no device time from a CUDA graph either")
+    return ms, "cuda graph"
 
 
 def two_steps_bit_equal(cfg, dev, seed: int, what: str) -> None:
@@ -1558,12 +1640,9 @@ def collective_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
         f"{warm:.1f} ms per step = {numbers['stage2_clips_s']:.3f} clips/s; "
         f"peak device memory {peak:.2f} GiB [{smi}]")
     if on_card:
-        from din_tpu_torch.experiments.profile_training import breakdown
-
-        prof = breakdown(lambda: engine.train_step(model, optimizer, sbatch,
-                                                   s2), 1)
+        prof = traced_step(lambda: engine.train_step(model, optimizer,
+                                                     sbatch, s2))
         busy = prof["busy_us"]
-        require(busy > 0, "the profiler recorded no device time")
         numbers["stage2_idle"] = 1 - busy / prof["wall_us"]
         log(f"[cad] stage 2, one profiled step: wall "
             f"{prof['wall_us'] / 1e3:.1f} ms, device busy {busy / 1e3:.1f} "
@@ -2066,12 +2145,9 @@ def variants_path(dev, tmp: Path, s1_path: str, smi: str, reset_counts,
             f"{c.batch_size / max(warm, 1e-9) * 1e3:.3f} clips/s; peak "
             f"device memory {numbers[f'{short}_peak_gib']:.2f} GiB [{smi}]")
         if on_card:
-            from din_tpu_torch.experiments.profile_training import breakdown
-
-            prof = breakdown(lambda: engine.train_step(model, optimizer,
-                                                       sbatch, c), 1)
+            prof = traced_step(lambda: engine.train_step(model, optimizer,
+                                                         sbatch, c))
             busy = prof["busy_us"]
-            require(busy > 0, "the profiler recorded no device time")
             numbers[f"{short}_busy_ms"] = busy / 1e3
             numbers[f"{short}_idle"] = 1 - busy / prof["wall_us"]
             log(f"[variants] {short}, one profiled step: wall "
@@ -2269,12 +2345,9 @@ def baselines_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
             f"{c.batch_size / max(warm, 1e-9) * 1e3:.3f} clips/s; peak "
             f"device memory {numbers[f'{short}_peak_gib']:.2f} GiB [{smi}]")
         if on_card:
-            from din_tpu_torch.experiments.profile_training import breakdown
-
-            prof = breakdown(lambda: engine.train_step(model, optimizer,
-                                                       sbatch, c), 1)
+            prof = traced_step(lambda: engine.train_step(model, optimizer,
+                                                         sbatch, c))
             busy = prof["busy_us"]
-            require(busy > 0, "the profiler recorded no device time")
             numbers[f"{short}_busy_ms"] = busy / 1e3
             numbers[f"{short}_idle"] = 1 - busy / prof["wall_us"]
             log(f"[baselines] {short}, one profiled step: wall "
@@ -2595,8 +2668,9 @@ def backbones_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
                 f"(1e-5 * max|df|, plus 1 ulp in bf16), bit-equal to the "
                 f"plain version on the CPU; bf16 times: K1 wrapper "
                 f"{times['k1_ms']:.4f} ms, launch alone "
-                f"{times['k1_launch_ms']:.4f} ms, profiler device time "
-                f"{times['k1_device_ms']:.4f} ms, F.grid_sample "
+                f"{times['k1_launch_ms']:.4f} ms, device time "
+                f"{times['k1_device_ms']:.4f} ms (by "
+                f"{times['k1_device_ms_by']}), F.grid_sample "
                 f"{times['k1_grid_sample_ms']:.4f} ms, bound "
                 f"{times['k1_bound']:.5f} ms "
                 f"({times['k1_mb']:.2f} MB, {times['in_range']} of "
@@ -3424,14 +3498,27 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
     prof = tmp / "profile"
     hcfg = base.replace(exp_name="h", max_epoch=3, keep_checkpoints=1,
                         profile_dir=str(prof))
-    engine.return_dataset = datasets
-    try:
-        reset_counts()
-        engine.train_net(hcfg, max_steps_per_epoch=1, device=dev)
-        sync()
-        counts["housekeeping"] = read_counts()
-    finally:
-        engine.return_dataset = saved["return_dataset"]
+    # run again from nothing, up to 3 runs in all, while the profiler's
+    # trace holds no kernel of any kind (a trace on the card has once come
+    # back without one); a trace with kernels but not the port's fails below
+    for attempt in range(3):
+        for old in (prof, tmp / "h"):
+            shutil.rmtree(old, ignore_errors=True)
+        engine.return_dataset = datasets
+        try:
+            reset_counts()
+            engine.train_net(hcfg, max_steps_per_epoch=1, device=dev)
+            sync()
+            counts["housekeeping"] = read_counts()
+        finally:
+            engine.return_dataset = saved["return_dataset"]
+        traces = sorted(prof.glob("*.json"))
+        require(len(traces) == 1, f"profile_dir holds {traces}")
+        text = traces[0].read_text()
+        if not on_card or re.search(r'"cat":\s*"kernel"', text):
+            break
+        log(f"[infra] run {attempt + 1} of 3: train_net's trace holds no "
+            f"kernel")
     expect(hcfg, "3 epochs of 1 step, 3 evals", counts["housekeeping"], 3,
            3 * -(-n_val // hcfg.test_batch_size))
     hlog = (tmp / "h" / "log.txt").read_text()
@@ -3454,9 +3541,6 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
     db = json.loads((tmp / "experiments.json").read_text())
     require("h" in db and "activities_acc" in db["h"]["best_result"],
             f"experiments.json: {sorted(db)}")
-    traces = sorted(prof.glob("*.json"))
-    require(len(traces) == 1, f"profile_dir holds {traces}")
-    text = traces[0].read_text()
     symbols = ("roi_align_kernel", "roi_align_bwd_kernel",
                "max_pool_2x2_kernel", "max_pool_2x2_bwd_kernel")
     missing = [s for s in symbols if s not in text]
@@ -3540,8 +3624,495 @@ def training_infra_path(dev, tmp: Path, smi: str, reset_counts, read_counts,
                 numbers=numbers)
 
 
+# -- phase 16: more than one rank ------------------------------------------
+
+def kernel_wrappers() -> dict:
+    """The five kernels' wrappers; ``launches`` counts one process's."""
+    from din_tpu_torch.ops.pool import max_pool_2x2, max_pool_2x2_bwd
+    from din_tpu_torch.ops.roi_align import roi_align, roi_align_bwd
+    from din_tpu_torch.ops.stem import fused_stem
+    return {"roi_align": roi_align, "max_pool_2x2": max_pool_2x2,
+            "max_pool_2x2_bwd": max_pool_2x2_bwd,
+            "roi_align_bwd": roi_align_bwd, "fused_stem": fused_stem}
+
+
+def _reset_launches() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def _read_launches() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def ranks_configs(tmp, small: dict):
+    """Phase 16's flagship and collective configs: synthetic clips, random
+    weights, 2 clips a rank, 2 eval clips a call; ``small`` shrinks them
+    for a rehearsal on the CPU."""
+    from din_tpu_torch.experiments.presets import PRESETS
+
+    common = dict(data_path="synthetic", load_backbone_stage2=False,
+                  result_root=str(tmp), batch_size=2, test_batch_size=2,
+                  num_workers=2, max_epoch=1)
+    flag = PRESETS["volleyball_stage2_dynamic"]().replace(**common, **small)
+    coll = PRESETS["collective_stage2_dynamic"]().replace(
+        **common, **{k: v for k, v in small.items() if k != "lite_dim"})
+    return flag, coll
+
+
+def ranks_datasets(cfg):
+    """8 training clips (2 steps of 2 clips on each of 2 ranks) and 4 eval
+    clips."""
+    from din_tpu_torch.data.synthetic import SyntheticDataset
+    return (SyntheticDataset(cfg, size=8, is_training=True, seed=1),
+            SyntheticDataset(cfg, size=4, is_training=False, seed=2))
+
+
+def _cpu_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _rank_step(cfg, state, batch, mesh, dev):
+    """One ``train_step`` of this rank's clips of ``batch`` from ``state``
+    under ``mesh``: (model, optimizer, the model it stepped (DDP), metrics,
+    launches, the local batch)."""
+    from din_tpu_torch.data.loader import to_device
+    from din_tpu_torch.models.registry import build_model
+    from din_tpu_torch.parallel.mesh import use_mesh
+    from din_tpu_torch.train import engine
+    from din_tpu_torch.train.optim import make_optimizer
+
+    model = build_model(cfg, device=dev)
+    model.load_state_dict(state)
+    if mesh.data_index:
+        engine.seed_dropouts_for_rank(model, mesh.data_index)
+    opt = make_optimizer(cfg, model, mesh)
+    wrapped = engine.wrap_model(model, mesh)
+    n, d = cfg.batch_size, mesh.data_index
+    local = to_device({k: v[d * n:(d + 1) * n] for k, v in batch.items()},
+                      dev)
+    _sync(dev)
+    _reset_launches()
+    with use_mesh(mesh):
+        m = engine.train_step(wrapped, opt, local, cfg)
+    _sync(dev)
+    return model, opt, wrapped, m, _read_launches(), local
+
+
+def _same_on_ranks(model, mesh, what: str) -> None:
+    """Every rank holds rank 0's parameters and buffers, bit for bit."""
+    import torch.distributed as dist
+
+    for k, v in model.state_dict().items():
+        ref = v.detach().clone()
+        dist.broadcast(ref, 0)
+        require(torch.equal(ref, v), f"{what}: {k} differs between ranks")
+
+
+def _bit_equal(a: dict, b: dict, what: str) -> None:
+    for k, v in a.items():
+        require(torch.equal(v, b[k]), f"{what}: {k} differs")
+
+
+def _adam_bytes(opt) -> int:
+    local = getattr(opt, "optim", opt)
+    return sum(v.numel() * v.element_size() for s in local.state.values()
+               for k, v in s.items() if k in ("exp_avg", "exp_avg_sq"))
+
+
+def _train_net_runs(cfg, dev, kill=False, **kw) -> dict:
+    """``train_net`` of ``cfg`` over ``ranks_datasets`` on this rank: an
+    uninterrupted run and, with ``kill``, a run that rank 1 stops by
+    SIGTERM after its first step, then its auto-resume.  Per run: steps
+    taken, launches, the final state and Adam state."""
+    import os
+    import signal
+
+    import torch.distributed as dist
+
+    from din_tpu_torch.train import engine
+
+    rank = dist.get_rank()
+    engine.return_dataset = ranks_datasets
+    seen = {"n": 0, "kill_at": None}
+    step = engine.train_step
+
+    def recording(model, optimizer, batch, c):
+        seen["model"] = getattr(model, "module", model)
+        seen["optimizer"] = optimizer
+        out = step(model, optimizer, batch, c)
+        seen["n"] += 1
+        if seen["n"] == seen["kill_at"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    def run(name, kill_at=None, **more):
+        seen["n"], seen["kill_at"] = 0, kill_at
+        _sync(dev)
+        _reset_launches()
+        best = engine.train_net(cfg.replace(exp_name=name, **more),
+                                device=dev, **kw)
+        _sync(dev)
+        return {"best": {k: v for k, v in best.items()
+                         if not hasattr(v, "shape")},
+                "steps": seen["n"], "launches": _read_launches(),
+                "state": _cpu_state(seen["model"]),
+                "optimizer": seen["optimizer"].state_dict()}
+
+    engine.train_step = recording
+    try:
+        out = {"whole": run("whole")}
+        if kill:
+            out["cut"] = run("cut", kill_at=1 if rank == 1 else None)
+            out["resumed"] = run("cut", auto_resume=True)
+    finally:
+        engine.train_step = step
+    return out
+
+
+def ranks_world1(tmp: str, small: dict, dev: str) -> dict:
+    """Phase 16 (a), in a rank of a run of one (NCCL on the card): one
+    flagship step of 2 clips through ``DistributedDataParallel`` (the
+    port's summing hook) against the plain step from the same state,
+    dropout on; then ``train_net``, 3 steps at batch 2 and an eval
+    pass."""
+    import torch.distributed as dist
+
+    from din_tpu_torch.data.loader import to_device
+    from din_tpu_torch.models.registry import build_model
+    from din_tpu_torch.train import engine
+    from din_tpu_torch.train.optim import make_optimizer
+
+    dev = torch.device(dev)
+    flag, _ = ranks_configs(tmp, small)
+    inputs = torch.load(Path(tmp) / "ranks_inputs.pt", weights_only=False)
+    batch = to_device({k: v[:2] for k, v in inputs["flag_batch"].items()},
+                      dev)
+    states, losses = {}, {}
+    for name in ("plain", "ddp"):
+        model = build_model(flag, device=dev)
+        model.load_state_dict(inputs["flag_state"])
+        opt = make_optimizer(flag, model)
+        stepped = model
+        if name == "ddp":
+            stepped = torch.nn.parallel.DistributedDataParallel(
+                model, device_ids=[dev.index] if dev.type == "cuda" else None,
+                broadcast_buffers=False)
+            stepped.register_comm_hook((dist.group.WORLD, 1),
+                                       engine.sum_gradients_hook)
+        losses[name] = float(engine.train_step(stepped, opt, batch,
+                                               flag)["loss"])
+        states[name] = _cpu_state(model)
+        del model, opt, stepped
+    _bit_equal(states["ddp"], states["plain"], "world-1 DDP step")
+    require(losses["ddp"] == losses["plain"], "world-1 DDP loss")
+    run = _train_net_runs(flag, dev, max_steps_per_epoch=3)["whole"]
+    return {"loss": losses["plain"], "steps": run["steps"],
+            "launches": run["launches"], "backend": dist.get_backend(),
+            "best": run["best"]}
+
+
+def ranks_world2(tmp: str, small: dict, dev: str) -> dict:
+    """Phase 16 (b)-(g) on each of two ranks (gloo; both on one card):
+    see ``ranks_path``."""
+    import torch.distributed as dist
+
+    from din_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from din_tpu_torch.train import engine
+
+    dev = torch.device(dev)
+    rank = dist.get_rank()
+    flag, coll = ranks_configs(tmp, small)
+    inputs = torch.load(Path(tmp) / "ranks_inputs.pt", weights_only=False)
+    fstate, fbatch = inputs["flag_state"], inputs["flag_batch"]
+    out = {"launches": {}, "loss": {}}
+
+    def keep(name, model, loss, launches):
+        out["loss"][name] = loss
+        out["launches"][name] = launches
+        if rank == 0:
+            out.setdefault("state", {})[name] = _cpu_state(model)
+
+    # (b) the data-parallel flagship step, 5-frame chunks, dropout 0
+    cb = flag.replace(frame_chunk=5, train_dropout_prob=0.0)
+    mesh = make_mesh(cb)
+    model, _, _, m, launched, _ = _rank_step(cb, fstate, fbatch, mesh, dev)
+    _same_on_ranks(model, mesh, "(b) step")
+    keep("dp_step", model, float(m["loss"]), launched)
+    del model
+    # at the default chunks: the loss, and each rank's step time (both
+    # ranks step together on one card)
+    cd = flag.replace(train_dropout_prob=0.0)
+    model, opt, wrapped, m, _, local = _rank_step(cd, fstate, fbatch, mesh,
+                                                  dev)
+    out["loss"]["dp_default"] = float(m["loss"])
+    times = []
+    with use_mesh(mesh):
+        for _ in range(4):
+            mesh.barrier()
+            _sync(dev)
+            t = time.perf_counter()
+            engine.train_step(wrapped, opt, local, cd)
+            _sync(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+    out["step_ms"] = times[1:]
+    del model, opt, wrapped
+    # dropout on: two runs from one state are bit-equal, and so is ZeRO-1
+    runs = {}
+    for name, c in (("first", flag), ("second", flag),
+                    ("zero", flag.replace(shard_opt_state=True))):
+        model, opt = _rank_step(c, fstate, fbatch, mesh, dev)[:2]
+        runs[name] = (_cpu_state(model), _adam_bytes(opt))
+        del model, opt
+    _bit_equal(runs["second"][0], runs["first"][0],
+               "(b) two steps with dropout")
+    _bit_equal(runs["zero"][0], runs["first"][0], "(b) ZeRO-1 step")
+    out["adam_bytes"] = {"zero": runs["zero"][1],
+                         "replicated": runs["first"][1]}
+    del runs
+    # (c) the collective ResNet-18 (live BatchNorm), 5-frame chunks
+    cc = coll.replace(frame_chunk=5, train_dropout_prob=0.0)
+    cmesh = make_mesh(cc)
+    model, _, _, m, launched, _ = _rank_step(
+        cc, inputs["coll_state"], inputs["coll_batch"], cmesh, dev)
+    _same_on_ranks(model, cmesh, "(c) step")
+    keep("collective", model, float(m["loss"]), launched)
+    del model
+    # (d) frame parallel: one data group of 2 clips, its frames split
+    fp = cd.replace(mesh_shape={"data": 1, "model": 2}, frame_parallel=True)
+    fmesh = make_mesh(fp)
+    model, _, _, m, launched, _ = _rank_step(fp, fstate, fbatch, fmesh, dev)
+    _same_on_ranks(model, fmesh, "(d) step")
+    keep("frame_parallel", model, float(m["loss"]), launched)
+    del model
+    # (e) train_net: SIGTERM to rank 1 alone, the resume against a whole run
+    runs = _train_net_runs(flag, dev, kill=True)
+    whole, resumed = runs["whole"], runs["resumed"]
+    _bit_equal(resumed["state"], whole["state"], "(e) resumed run")
+    for i, s in whole["optimizer"]["state"].items():
+        _bit_equal(resumed["optimizer"]["state"][i], s, f"(e) Adam {i}")
+    out["train_net"] = {k: {"steps": r["steps"], "launches": r["launches"]}
+                        for k, r in runs.items()}
+    if rank == 0:
+        out["preempt_files"] = sorted(
+            p.name for p in (Path(tmp) / "cut").glob("*_preempt.pth"))
+    return out
+
+
+def plan_calls(c, n_frames: int, ranks, train: bool) -> tuple:
+    """(backbone calls, frames per call) of one rank's ``n_frames`` under
+    ``models/trunk.py`` ``FramePlan`` with ``ranks`` = (frame ranks, model
+    ranks)."""
+    from types import SimpleNamespace
+
+    from din_tpu_torch.models.trunk import FramePlan
+    from din_tpu_torch.nn.backbones import BACKBONE_HAS_BN
+
+    P, M = ranks
+    mesh = SimpleNamespace(model=M, frame_parallel=M > 1, model_index=0,
+                           frame_size=P, frame_index=0, frame_group=None,
+                           model_group=None)
+    H, W = c.image_size
+    plan = FramePlan(mesh, n_frames, H, W, c.frame_chunk, c.train_backbone,
+                     train and not c.set_bn_eval
+                     and BACKBONE_HAS_BN.get(c.backbone, True),
+                     c.shard_local_chunks)
+    return len(plan.rounds), (plan.stop - plan.start) // len(plan.rounds)
+
+
+def ranks_path(dev, tmp: Path, smi: str, small=None) -> dict:
+    """Phase 16: training on more than one rank (see the module docstring).
+    ``small`` shrinks the configs for a rehearsal on the CPU, where no
+    kernel launches and the counts and times are not checked.  Returns the
+    launch counts of each path and the measured numbers."""
+    from din_tpu_torch.data.loader import to_device
+    from din_tpu_torch.data.synthetic import make_synthetic_batch
+    from din_tpu_torch.models.registry import build_model
+    from din_tpu_torch.models.trunk import auto_chunk
+    from din_tpu_torch.parallel.launch import run_ranks
+    from din_tpu_torch.train.engine import train_step
+    from din_tpu_torch.train.optim import make_optimizer
+
+    on_card = dev.type == "cuda"
+    small = small or {}
+    t_all = time.time()
+    if on_card:
+        log(f"[ranks] this process holds "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card "
+            f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved)")
+    flag, coll = ranks_configs(tmp, small)
+    T, lr = flag.num_frames, flag.train_learning_rate
+    inputs = {}
+    for name, c, seed in (("flag", flag, SEED + 161),
+                          ("coll", coll, SEED + 163)):
+        gen = torch.Generator().manual_seed(seed)
+        model = build_model(c, device="cpu", generator=gen)
+        _randomize_din(model, gen)
+        inputs[name + "_state"] = model.state_dict()
+        inputs[name + "_batch"] = make_synthetic_batch(
+            c, 4, rng=np.random.RandomState(seed + 1))
+    torch.save(inputs, tmp / "ranks_inputs.pt")
+
+    # one process, the same 4 clips (2 for the frame-parallel group)
+    ref = {}
+    for name, c, state, clips in (
+            ("dp_step", flag.replace(frame_chunk=5, train_dropout_prob=0.0),
+             "flag", 4),
+            ("dp_default", flag.replace(train_dropout_prob=0.0), "flag", 4),
+            ("frame_parallel", flag.replace(train_dropout_prob=0.0), "flag",
+             2),
+            ("collective", coll.replace(frame_chunk=5,
+                                        train_dropout_prob=0.0), "coll",
+             4)):
+        c = c.replace(batch_size=clips)
+        model = build_model(c, device=dev)
+        model.load_state_dict(inputs[state + "_state"])
+        opt = make_optimizer(c, model)
+        batch = to_device({k: v[:clips] for k, v in
+                           inputs[state + "_batch"].items()}, dev)
+        ref[name] = {"loss": float(train_step(model, opt, batch, c)["loss"]),
+                     "state": _cpu_state(model)}
+        if name == "dp_default" and on_card:
+            ref[name]["ms"] = time_host(
+                lambda: train_step(model, opt, batch, c), 4)[1:]
+        del model, opt, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[ranks] one-process references in {time.time() - t_all:.2f} s")
+
+    t0 = time.time()
+    backend = "nccl" if on_card else "gloo"
+    one = run_ranks("chip_smoke.py:ranks_world1", 1,
+                    {"tmp": str(tmp), "small": small,
+                     "dev": "cuda:0" if on_card else "cpu"},
+                    device="cuda:0" if on_card else "cpu", backend=backend,
+                    timeout=400, init_timeout=120, threads=2,
+                    workdir=str(tmp / "world1"))[0]
+    log(f"[ranks] (a) one rank over {one['backend']}: a DDP step (the "
+        f"port's summing hook) bit-equal to the plain step from one state, "
+        f"dropout on (loss {one['loss']!r}); train_net took {one['steps']} "
+        f"steps and an eval pass ({time.time() - t0:.2f} s)")
+    want, how = derived_counts(flag, 3, T, 2, T)
+    log(f"[ranks] (a) launches {one['launches']}, expected {want} ({how})")
+    require(not on_card or one["launches"] == want,
+            "(a) launch counts are off")
+    require(one["steps"] == 3, "(a) train_net did not take 3 steps")
+
+    t0 = time.time()
+    two = run_ranks("chip_smoke.py:ranks_world2", 2,
+                    {"tmp": str(tmp), "small": small,
+                     "dev": "cuda:0" if on_card else "cpu"},
+                    device="cuda:0" if on_card else "cpu", backend="gloo",
+                    timeout=600, init_timeout=120, threads=2,
+                    workdir=str(tmp / "world2"))
+    log(f"[ranks] two gloo ranks on one {'card' if on_card else 'CPU'}: "
+        f"{time.time() - t0:.2f} s")
+    numbers = {"world1_loss": one["loss"]}
+    counts = {"ranks_world1_train_net": one["launches"]}
+    r0 = two[0]
+    for name, what, ulps in (("dp_step", "(b) the data-parallel step of 2 "
+                              "ranks x 2 clips against one process's 4, "
+                              "5-frame chunks", 0),
+                             ("frame_parallel", "(d) frame parallel, one "
+                              "data group of 2 clips over 2 model ranks, "
+                              "against one process's 2 clips", 0),
+                             ("collective", "(c) the collective ResNet-18 "
+                              "(live BatchNorm) of 2 ranks x 2 clips, "
+                              "5-frame chunks", 2)):
+        loss = r0["loss"][name] if name == "frame_parallel" else \
+            sum(r["loss"][name] for r in two)
+        want_loss = ref[name]["loss"]
+        rel = abs(loss - want_loss) / abs(want_loss)
+        require(rel <= 1e-5, f"{what}: loss {loss} against {want_loss}")
+        got, want_state = r0["state"][name], dict(ref[name]["state"])
+        stats_err = 0.0
+        for k in [k for k in want_state
+                  if k.endswith(("running_mean", "running_var"))]:
+            v = want_state.pop(k).float()
+            diff = float((got[k].float() - v).abs().max())
+            scale = max(float(v.abs().max()), 1e-30)
+            require(diff <= 1e-4 * scale, f"{what}: {k} differs by {diff}")
+            stats_err = max(stats_err, diff / scale)
+        perr, share, sname = check_params(got, want_state, (1,), lr, what,
+                                          ulps=ulps)
+        log(f"[ranks] {what}: loss {loss!r} against {want_loss!r} (rel "
+            f"{rel:.3g}); parameters max |diff| {perr:.3g}, largest share "
+            f"beyond 2e-5 {share:.4f} ({sname or '-'}), BatchNorm "
+            f"statistics {stats_err:.3g} of their largest |value| (bound "
+            f"1e-4); every rank equal")
+        numbers[name] = {"loss": loss, "one_process_loss": want_loss,
+                         "rel": rel, "max_param_diff": perr,
+                         "stats_rel": stats_err}
+    gap = abs(sum(r["loss"]["dp_default"] for r in two)
+              - ref["dp_default"]["loss"]) / abs(ref["dp_default"]["loss"])
+    numbers["dp_default_rel"] = gap
+    H, W = flag.image_size
+    calls, per = plan_calls(flag, 2 * T, (2, 1), True)
+    log(f"[ranks] (b) at the default chunks (one process: "
+        f"{auto_chunk(4 * T, H, W, None, True)}-frame chunks; each rank: "
+        f"{calls} calls of {per} frames) the losses part by {gap:.3g} "
+        f"(relative; reported: cuDNN's bf16 convolutions of other shapes "
+        f"round otherwise)")
+    ab = [r["adam_bytes"] for r in two]
+    numbers["adam_bytes"] = ab
+    require(ab[0]["zero"] + ab[1]["zero"] == ab[0]["replicated"],
+            "(b) ZeRO-1's shards do not add up to the Adam state")
+    log(f"[ranks] (b) two runs with dropout on bit-equal; ZeRO-1 bit-equal "
+        f"to replicated DDP; Adam bytes per rank: ZeRO-1 "
+        f"{[a['zero'] for a in ab]}, replicated {ab[0]['replicated']}")
+    tn = [r["train_net"] for r in two]
+    require(all(t["cut"]["steps"] == 1 and t["resumed"]["steps"] == 1
+                for t in tn), f"(e) steps of the cut and resumed runs: {tn}")
+    require(r0["preempt_files"] == ["stage2_epoch0_preempt.pth"],
+            f"(e) preemption files {r0['preempt_files']}")
+    log(f"[ranks] (e) train_net on 2 ranks: SIGTERM to rank 1 after its "
+        f"first step stopped both ranks there "
+        f"({[t['cut']['steps'] for t in tn]} steps), one "
+        f"{r0['preempt_files'][0]}; the resumed run bit-equal to the "
+        f"uninterrupted one (parameters, Adam state), each rank")
+    # (f) each rank's launches against the per-rank derived counts
+    for name, c, steps, evals, ranks in (
+            ("dp_step", flag.replace(frame_chunk=5), 1, 0, (2, 1)),
+            ("collective", coll.replace(frame_chunk=5), 1, 0, (2, 1)),
+            ("frame_parallel", flag, 1, 0, (2, 2))):
+        want, how = derived_counts(c, steps, T, evals, T, ranks=ranks)
+        for i, r in enumerate(two):
+            got = r["launches"][name]
+            counts[f"ranks_{name}_r{i}"] = got
+            require(not on_card or got == want,
+                    f"(f) {name} rank {i}: launches {got}, expected {want}")
+        log(f"[ranks] (f) {name}: each rank {two[0]['launches'][name]}, "
+            f"expected {want} ({how})")
+    want, how = derived_counts(flag, 2, T, 1, T, ranks=(2, 1))
+    for i, t in enumerate(tn):
+        counts[f"ranks_train_net_r{i}"] = t["whole"]["launches"]
+        require(not on_card or t["whole"]["launches"] == want,
+                f"(f) train_net rank {i}: launches "
+                f"{t['whole']['launches']}, expected {want}")
+    log(f"[ranks] (f) train_net: each rank {tn[0]['whole']['launches']}, "
+        f"expected {want} ({how})")
+    if on_card:
+        ms = [float(np.median(r["step_ms"])) for r in two]
+        one_ms = float(np.median(ref["dp_default"]["ms"]))
+        numbers.update(rank_step_ms=ms, one_process_bs4_ms=one_ms)
+        log(f"[ranks] (g) two processes sharing one card, not a scaling "
+            f"figure: each rank's flagship step of 2 clips (gloo, default "
+            f"chunks) median {ms[0]:.2f} / {ms[1]:.2f} ms "
+            f"({[round(x, 2) for x in two[0]['step_ms']]}, "
+            f"{[round(x, 2) for x in two[1]['step_ms']]}); one process's "
+            f"step of the same 4 clips {one_ms:.2f} ms "
+            f"({[round(x, 2) for x in ref['dp_default']['ms']]}) [{smi}]")
+    log(f"[ranks] done in {time.time() - t_all:.2f} s")
+    return {"counts": counts, "numbers": numbers}
+
+
 def derived_counts(c, steps: int, step_T: int, eval_calls: int,
-                   eval_T: int, eval_batch=None):
+                   eval_T: int, eval_batch=None, ranks=None):
     """Launches of ``steps`` training steps of clips of ``step_T`` frames
     (every layer one by one: the stem needs its gradient) and ``eval_calls``
     eval calls of ``eval_batch`` (default ``c.test_batch_size``; a serving
@@ -3553,16 +4124,25 @@ def derived_counts(c, steps: int, step_T: int, eval_calls: int,
     stem: one RoIAlign forward per call, one backward per step when the
     backbone trains (none with it frozen: ARG), whatever the chunks, where
     a map of the backbone is ``out_size`` (Inception-v3's other map, and a
-    map of any other size, goes through the composed rows: no kernel)."""
+    map of any other size, goes through the composed rows: no kernel).
+    With ``ranks`` = (frame ranks, model ranks) they are one rank's, its
+    backbone calls those of ``plan_calls`` (``models/trunk.py``
+    ``FramePlan``)."""
     from din_tpu_torch.models.trunk import auto_chunk
 
     H, W = c.image_size
     step_frames = c.batch_size * step_T
-    step_chunks = step_frames // auto_chunk(
-        step_frames, H, W, c.frame_chunk, c.train_backbone)
     eval_frames = (eval_batch or c.test_batch_size) * eval_T
-    eval_chunks = eval_frames // auto_chunk(
-        eval_frames, H, W, c.frame_chunk, c.train_backbone)
+    if ranks is None:
+        step_per = auto_chunk(step_frames, H, W, c.frame_chunk,
+                              c.train_backbone)
+        eval_per = auto_chunk(eval_frames, H, W, c.frame_chunk,
+                              c.train_backbone)
+        step_chunks = step_frames // step_per
+        eval_chunks = eval_frames // eval_per
+    else:
+        step_chunks, step_per = plan_calls(c, step_frames, ranks, True)
+        eval_chunks, eval_per = plan_calls(c, eval_frames, ranks, False)
     if c.backbone not in ("vgg16", "vgg19"):
         k1 = int(tuple(c.out_size) in backbone_maps(c.backbone, H, W))
         bwd = steps * k1 if c.train_backbone else 0
@@ -3574,9 +4154,9 @@ def derived_counts(c, steps: int, step_T: int, eval_calls: int,
                    else " (frozen backbone: no backward)")
                 + f" on the map of out_size {tuple(c.out_size)} of "
                 f"{step_chunks} backbone chunk(s) of "
-                f"{step_frames // step_chunks} frames; per eval call {k1} "
+                f"{step_per} frames; per eval call {k1} "
                 f"RoIAlign on {eval_chunks} chunk(s) of "
-                f"{eval_frames // eval_chunks} frames; no 2x2 pool, no VGG "
+                f"{eval_per} frames; no 2x2 pool, no VGG "
                 f"stem")
     return ({"max_pool_2x2": 5 * steps * step_chunks
              + 4 * eval_calls * eval_chunks,
@@ -3585,9 +4165,9 @@ def derived_counts(c, steps: int, step_T: int, eval_calls: int,
              "roi_align_bwd": steps,
              "fused_stem": eval_calls * eval_chunks},
             f"per step 5 pools x {step_chunks} chunk(s) of "
-            f"{step_frames // step_chunks} frames and 1 RoIAlign; eval "
+            f"{step_per} frames and 1 RoIAlign; eval "
             f"{eval_calls} calls x {eval_chunks} chunk(s) of "
-            f"{eval_frames // eval_chunks} frames of the fused stem and 4 "
+            f"{eval_per} frames of the fused stem and 4 "
             f"pools")
 
 
@@ -3604,7 +4184,6 @@ def main() -> int:
     from din_tpu_torch.data.synthetic import make_synthetic_batch
     from din_tpu_torch.experiments.predict import Predictor
     from din_tpu_torch.experiments.presets import PRESETS
-    from din_tpu_torch.experiments.profile_training import breakdown
     from din_tpu_torch.experiments.run import config_from_args
     from din_tpu_torch.models.registry import build_model
     from din_tpu_torch.models.trunk import auto_chunk
@@ -3621,16 +4200,7 @@ def main() -> int:
     from din_tpu_torch.train.engine import (setup_training, train_net,
                                             train_step)
 
-    wrappers = {"roi_align": roi_align, "max_pool_2x2": max_pool_2x2,
-                "max_pool_2x2_bwd": max_pool_2x2_bwd,
-                "roi_align_bwd": roi_align_bwd, "fused_stem": fused_stem}
-
-    def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def read_counts():
-        return {k: w.launches for k, w in wrappers.items()}
+    reset_counts, read_counts = _reset_launches, _read_launches
 
     dev = torch.device("cuda")
     t_all = time.time()
@@ -4339,9 +4909,8 @@ def main() -> int:
         f"step {ms_step:.1f} ms per step = "
         f"{mcfg.batch_size / ms_step * 1e3:.3f} clips/s; peak device memory "
         f"{step_peak:.2f} GiB")
-    prof = breakdown(lambda: train_step(model, optimizer, mbatch, mcfg), 1)
+    prof = traced_step(lambda: train_step(model, optimizer, mbatch, mcfg))
     busy = prof["busy_us"]
-    require(busy > 0, "the profiler recorded no device time")
     shares = {k: v / busy for k, v in prof["by_category"].items()}
     log(f"[memorise] one profiled step: wall {prof['wall_us'] / 1e3:.1f} ms, "
         f"device busy {busy / 1e3:.1f} ms (idle share "
@@ -4498,7 +5067,8 @@ def main() -> int:
     lib, stream = native.library(), native.current_stream(feats)
     log(f"[times] K1 {list(feats.shape)} bf16 x {main_boxes.shape[1]} boxes: "
         f"wrapper {k1_ms:.4f} ms (launch alone {k1y['launch_ms']:.4f} ms, "
-        f"profiler device time {k1y['device_ms']:.4f} ms; the kernel "
+        f"device time {k1y['device_ms']:.4f} ms by {k1y['device_ms_by']}; "
+        f"the kernel "
         f"computes the sample grid), bound {k1_bound:.5f} ms "
         f"({k1_bytes / 1e6:.2f} MB; launch alone at "
         f"{k1_bound / k1y['launch_ms']:.3f} of it), plain {k1_plain:.4f} ms; "
@@ -4575,8 +5145,9 @@ def main() -> int:
     log(f"[times] K1 {list(cshape)} bf16 x 13 boxes (4 zero-padded; "
         f"{c_in} of {ys.shape[0] * ys.shape[1] * 25} samples in range): "
         f"wrapper {cad_times['k1_ms']:.4f} ms, launch alone "
-        f"{cad_times['k1_launch_ms']:.4f} ms, profiler device time "
-        f"{cad_times['k1_device_ms']:.4f} ms, F.grid_sample "
+        f"{cad_times['k1_launch_ms']:.4f} ms, device time "
+        f"{cad_times['k1_device_ms']:.4f} ms (by "
+        f"{cad_times['k1_device_ms_by']}), F.grid_sample "
         f"{cad_times['k1_grid_sample_ms']:.4f} ms, bound "
         f"{cad_times['k1_bound']:.5f} ms ({cbytes / 1e6:.2f} MB), plain "
         f"{cad_times['k1_plain']:.4f} ms; K1b {[20, 13, *crop, 512]} bf16 -> "
@@ -4596,8 +5167,9 @@ def main() -> int:
         log(f"[times] K1 and K1b at [20,23,40,512] bf16 x 12 boxes, crop "
             f"{crop_b[0]}x{crop_b[1]} ({bt['in_range']} of {bt['samples']} "
             f"samples in range): K1 wrapper {bt['k1_ms']:.4f} ms, launch "
-            f"alone {bt['k1_launch_ms']:.4f} ms, profiler device time "
-            f"{bt['k1_device_ms']:.4f} ms, F.grid_sample "
+            f"alone {bt['k1_launch_ms']:.4f} ms, device time "
+            f"{bt['k1_device_ms']:.4f} ms (by {bt['k1_device_ms_by']}), "
+            f"F.grid_sample "
             f"{bt['k1_grid_sample_ms']:.4f} ms, bound "
             f"{bt['k1_bound']:.5f} ms ({bt['k1_mb']:.2f} MB), plain "
             f"{bt['k1_plain']:.4f} ms; K1b wrapper {bt['k1b_ms']:.4f} ms, "
@@ -4687,6 +5259,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=run_root) as tmp:
         infra_run = training_infra_path(dev, Path(tmp), smi, reset_counts,
                                         read_counts)
+
+    # -- 16. more than one rank ---------------------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=run_root) as tmp:
+        ranks_run = ranks_path(dev, Path(tmp), smi)
     log(f"[total] {time.time() - t_all:.1f} s")
 
     def launches(name):
@@ -4709,14 +5286,17 @@ def main() -> int:
                                      **{path: c[name] for path, c in
                                         export_run["counts"].items()},
                                      **{path: c[name] for path, c in
-                                        infra_run["counts"].items()}}}
+                                        infra_run["counts"].items()},
+                                     **{path: c[name] for path, c in
+                                        ranks_run["counts"].items()}}}
 
     def yardsticks(kernel, t):
-        """K1's launch alone, profiler time and F.grid_sample, from ``t``."""
+        """K1's launch alone, device time (and how it was read) and
+        F.grid_sample, from ``t``."""
         if kernel != "k1":
             return {}
         return {k: t["k1_" + k] for k in ("launch_ms", "device_ms",
-                                          "grid_sample_ms")}
+                                          "device_ms_by", "grid_sample_ms")}
 
     def baseline_shapes(kernel):
         return {f"{k[0]}x{k[1]}": {

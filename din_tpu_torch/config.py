@@ -154,6 +154,31 @@ class Config:
     # must be divisible by it (din_tpu/config.py:157)
     grad_accum_steps: int = 1
 
+    # more than one rank (one process each, torch.distributed;
+    # din_tpu/config.py:140-179, parallel/mesh.py): the ranks laid out as
+    # data x model, e.g. {"data": 2, "model": 2}; empty = every rank on
+    # 'data'.  cfg.batch_size stays the batch of one data rank.
+    mesh_shape: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # Sequence(frame) parallelism: the ranks of a model group split their
+    # data group's B*T frames through the backbone and RoIAlign (frames
+    # are independent there, models/trunk.py), and the RoI features are
+    # gathered back to every rank of the group for the reasoning head.
+    # Scales the backbone even at batch sizes data parallelism cannot split
+    # (e.g. bs1).  Parameters stay replicated.
+    frame_parallel: bool = False
+    # ZeRO-1: the Adam moments sharded over the 'data' ranks
+    # (torch.distributed.optim.ZeroRedundancyOptimizer): the same update,
+    # optimizer memory per rank 2x params -> 2x/n_data.  No-op on one data
+    # rank.
+    shard_opt_state: bool = False
+    # Shard-local frame-chunk packing over the frame ranks: 'auto' = each
+    # rank packs its own frames into every chunk whenever that leaves the
+    # numbers as they are (no live trunk BatchNorm), 'on' = also with live
+    # BatchNorm (chunks regroup; their statistics are still reduced over
+    # the ranks they span), 'off' = the order-preserving packing, where a
+    # chunk may span ranks.  models/trunk.py.
+    shard_local_chunks: str = "auto"
+
     # dtype of the backbone's convolutions; parameters and the head are f32
     compute_dtype: str = "bfloat16"
     frame_chunk: Optional[int] = None    # frames per backbone micro-batch

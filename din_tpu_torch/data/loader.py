@@ -13,7 +13,13 @@ interleaving, and both frameworks draw the same batches.  ``drop_last``
 drops a final partial batch (training); ``pad_last`` instead fills it by
 cycling its samples and marks the padding in ``batch['sample_mask']``
 (eval).  Every process takes a strided slice of the shared permutation
-(``process_index``/``process_count``).
+(``process_index``/``process_count``).  With ``even_batches`` every
+process yields the same number of batches, as ranks that step together
+need (each batch is a step of all, with collectives): ``drop_last`` counts
+the smallest slice's full batches, ``pad_last`` the largest slice's
+batches, a slice that runs out yielding batches of its own samples
+cycled, wholly masked; without it (din_tpu's loader) each process counts
+its own slice's.
 
 ``prefetch_to_device`` puts batches on the device ``size`` ahead of the
 step on a producer thread: on the card it pins each batch, copies it with
@@ -43,7 +49,8 @@ class BatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 0, drop_last: bool = True,
                  pad_last: bool = False, process_index: int = 0,
-                 process_count: int = 1, decode_ahead: int = 2):
+                 process_count: int = 1, decode_ahead: int = 2,
+                 even_batches: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -54,6 +61,7 @@ class BatchLoader:
         self.pad_last = pad_last
         self.process_index = process_index
         self.process_count = process_count
+        self.even_batches = even_batches
         self.decode_ahead = max(1, decode_ahead)
         self.epoch = 0
         self._skip = 0
@@ -66,12 +74,14 @@ class BatchLoader:
         self.epoch = epoch
         self._skip = skip_batches
 
-    def _local_count(self) -> int:
-        return len(range(self.process_index, len(self.dataset),
-                         self.process_count))
-
     def __len__(self) -> int:
-        n = self._local_count()
+        n, pc = len(self.dataset), self.process_count
+        if not self.even_batches:
+            n = len(range(self.process_index, n, pc))
+        elif self.drop_last:
+            n = n // pc                    # the smallest slice
+        else:
+            n = -(-n // pc)                # the largest slice
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
 
@@ -102,7 +112,9 @@ class BatchLoader:
                 idx = order[b * self.batch_size:(b + 1) * self.batch_size]
                 n_real = len(idx)
                 if self.pad_last and n_real < self.batch_size:
-                    idx = np.resize(idx, self.batch_size)       # cycle
+                    # cycle (a slice that ran out: its last samples)
+                    idx = np.resize(idx if n_real else
+                                    order[-self.batch_size:], self.batch_size)
                 ring.append((n_real, [pool.submit(self.dataset.__getitem__,
                                                   int(i)) for i in idx]))
 

@@ -50,6 +50,18 @@ Adam step on their averaged gradient:
         --exp-name flagship --auto-resume --train-to-epoch 30 \
         --batch-size 4 --grad-accum-steps 2
 
+More than one rank: the same command under ``torch.distributed.run``, one
+process per card, joins the ranks (``parallel/multihost.py``: NCCL on the
+card, gloo with ``--device cpu``); ``--batch-size`` is one rank's batch,
+``--shard-opt-state`` shards the Adam moments over the ranks (ZeRO-1), and
+rank 0 alone writes the log and the checkpoints.  With no launcher the run
+is one process, as above:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m din_tpu_torch.experiments.run \
+        --preset volleyball_stage2_dynamic --data-path data/volleyball/videos \
+        --exp-name flagship4 --auto-resume --shard-opt-state
+
 The Collective Activity path (T=10, 13 actors): stage 1 is Inception-v3
 (``--preset collective_stage1``); stage 2 is ResNet-18, so its stage 1 is
 ``collective_stage1().replace(backbone="res18", out_size=(15, 23),
@@ -64,6 +76,7 @@ grafts:
 from __future__ import annotations
 
 import argparse
+import os
 
 from din_tpu_torch.experiments.presets import PRESETS
 
@@ -114,8 +127,12 @@ def config_from_args(argv=None):
     p.add_argument("--grad-accum-steps", type=int, default=None,
                    help="micro-batches per optimizer update (large-batch "
                         "gradients at micro-batch memory)")
+    p.add_argument("--shard-opt-state", action="store_true",
+                   help="ZeRO-1: shard the Adam moments over the data "
+                        "ranks (more than one rank)")
     p.add_argument("--device", default=None,
-                   help="default: the card (cuda); 'cpu' only when asked")
+                   help="default: the card (cuda; a rank's own under "
+                        "torch.distributed.run); 'cpu' only when asked")
     args = p.parse_args(argv)
 
     cfg = PRESETS[args.preset]()
@@ -154,16 +171,31 @@ def config_from_args(argv=None):
         overrides["train_to_epoch"] = args.train_to_epoch
     if args.grad_accum_steps is not None:
         overrides["grad_accum_steps"] = args.grad_accum_steps
+    if args.shard_opt_state:
+        overrides["shard_opt_state"] = True
     return cfg.replace(**overrides), args
 
 
 def main(argv=None):
+    from din_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                  shutdown_multihost)
     from din_tpu_torch.train.engine import train_net
+    from din_tpu_torch.utils.logging import is_log_rank
 
     cfg, args = config_from_args(argv)
-    best = train_net(cfg, max_steps_per_epoch=args.max_steps_per_epoch,
-                     device=args.device)
-    print("Best:", {k: v for k, v in best.items() if not hasattr(v, "shape")})
+    # a rank of torch.distributed.run joins its peers first
+    launched = "WORLD_SIZE" in os.environ and "RANK" in os.environ
+    if launched:
+        initialize_multihost(device=args.device)
+    try:
+        best = train_net(cfg, max_steps_per_epoch=args.max_steps_per_epoch,
+                         device=args.device)
+        if is_log_rank():
+            print("Best:", {k: v for k, v in best.items()
+                            if not hasattr(v, "shape")})
+    finally:
+        if launched:
+            shutdown_multihost()
     return best
 
 

@@ -17,6 +17,7 @@ init, zero biases.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -93,6 +94,8 @@ class TorchBatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N,C,H,W] (any memory format) -> the same shape and dtype."""
+        if self.training and _CHUNKS is not None:
+            return self._forward_chunks(x, _CHUNKS)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             dims = (0, 2, 3)
@@ -100,19 +103,100 @@ class TorchBatchNorm(nn.BatchNorm2d):
             var = (xf.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
             with torch.no_grad():
                 n = x.numel() // x.shape[1]
-                unbiased = var * (n / max(n - 1, 1))
-                m = 1.0 - self.momentum        # flax's momentum, 0.9
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var
-                                       + (1.0 - m) * unbiased)
-                self.num_batches_tracked.add_(1)
+                self.fold(mean, var * (n / max(n - 1, 1)))
         else:
             mean, var = self.running_mean, self.running_var
+        return self._normalize(x, xf, mean, var)
+
+    def _normalize(self, x, xf, mean, var) -> torch.Tensor:
         mul = self.weight * torch.rsqrt(var + self.eps)
         shift = self.bias - mean * mul
         y = xf * mul[:, None, None] + shift[:, None, None]
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def fold(self, mean: torch.Tensor, unbiased: torch.Tensor) -> None:
+        """One batch's statistics into the running ones (momentum 0.1)."""
+        m = 1.0 - self.momentum                # flax's momentum, 0.9
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * unbiased)
+        self.num_batches_tracked.add_(1)
+
+    def _forward_chunks(self, x: torch.Tensor,
+                        chunks: "ChunkStatistics") -> torch.Tensor:
+        """Training mode inside ``chunk_statistics``: the call's frames are
+        pieces of the round's frame chunks, which other ranks may share;
+        the sums of x and x^2 of each of the round's chunks are all-reduced
+        over the ranks, every piece is normalised with its chunk's
+        statistics, and those statistics wait in ``chunks`` to be folded in
+        chunk order."""
+        from din_tpu_torch.parallel.mesh import all_reduce_sum
+
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mine = {k: (s, e) for k, s, e in chunks.pieces}
+        at = {k: i for i, k in enumerate(chunks.round_chunks)}
+        zeros = xf.new_zeros(2, x.shape[1])
+        sums = []
+        for k in chunks.round_chunks:
+            if k in mine:
+                s, e = mine[k]
+                piece = xf[s:e]
+                sums.append(torch.stack([piece.sum(dim=(0, 2, 3)),
+                                         piece.square().sum(dim=(0, 2, 3))]))
+            else:
+                sums.append(zeros)
+        total = all_reduce_sum(torch.stack(sums), chunks.group)
+        n = chunks.chunk * x.shape[2] * x.shape[3]
+        mean = total[:, 0] / n
+        var = (total[:, 1] / n - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            for k, i in at.items():
+                chunks.pending.setdefault(self, {})[k] = (
+                    mean[i].detach(), var[i].detach() * (n / max(n - 1, 1)))
+        ys = [self._normalize(x[s:e], xf[s:e], mean[at[k]], var[at[k]])
+              for k, s, e in chunks.pieces]
+        return ys[0] if len(ys) == 1 else torch.cat(ys)
+
+
+class ChunkStatistics:
+    """The frame chunks of one trunk call spread over ranks (models/
+    trunk.py): the ranks that split the frames (``group``), the chunk's
+    size in frames, and, for the backbone call in flight, this
+    rank's ``pieces`` ((chunk, start, stop) rows of the call's batch) and
+    the ``round_chunks`` the call completes on every rank.  BatchNorm
+    statistics of finished rounds wait in ``pending`` until ``fold`` folds
+    them into the running ones, chunk after chunk in frame order, as din_tpu's
+    scan carries them (trunk.py:241-254), so that every rank ends with the
+    same running statistics."""
+
+    def __init__(self, group, chunk: int):
+        self.group = group
+        self.chunk = chunk
+        self.pieces = []
+        self.round_chunks = []
+        self.pending = {}
+
+    def fold(self) -> None:
+        for module, stats in self.pending.items():
+            for k in sorted(stats):
+                module.fold(*stats[k])
+        self.pending.clear()
+
+
+_CHUNKS: Optional[ChunkStatistics] = None
+
+
+@contextlib.contextmanager
+def chunk_statistics(chunks: Optional[ChunkStatistics]):
+    """Training-mode ``TorchBatchNorm`` calls in the code it wraps take
+    their statistics over ``chunks`` (None: over their own batch)."""
+    global _CHUNKS
+    prev = _CHUNKS
+    _CHUNKS = chunks
+    try:
+        yield
+    finally:
+        _CHUNKS = prev
 
 
 class SeededDropout(nn.Module):

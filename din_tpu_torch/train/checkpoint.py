@@ -27,6 +27,17 @@ generator states: the generators restart from their seeds, as din_tpu's
 regular files carry no PRNG key).  ``newest_resumable`` picks the file
 ``auto_resume`` continues from, ``prune_checkpoints`` the regular files
 ``keep_checkpoints`` deletes (din_tpu/train/checkpoint.py:183-212).
+
+More than one rank (``mesh``, ``parallel/mesh.py``): every rank calls the
+save, rank 0 writes the file in the same layout as one process (the
+model's own keys, no ``module.`` prefix; a ZeRO-1 optimizer's state
+consolidated on rank 0 first, by every rank of its data column, as
+din_tpu gathers its sharded moments before a save, checkpoint.py:36-52)
+and the others wait at a barrier until the file is there.  A ``_preempt``
+file also holds every data rank's dropout generators
+(``dropout_rng_ranks``, gathered on rank 0); ``dropout_rng`` stays rank
+0's.  Every rank loads the file and takes its own generators; a rank the
+file has none for starts its generators from their seeds.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from din_tpu_torch.nn.layers import SeededDropout
+from din_tpu_torch.train.optim import is_sharded
 
 
 def _save(obj, path: str) -> None:
@@ -48,27 +60,63 @@ def _save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _writes(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        mesh.barrier()
+
+
+def optimizer_state(optimizer: torch.optim.Optimizer,
+                    mesh=None) -> Optional[Dict]:
+    """The optimizer's whole ``state_dict`` on rank 0 (None elsewhere
+    under ZeRO-1, whose shards every rank of rank 0's data column sends to
+    rank 0: each of them calls this)."""
+    if mesh is not None and is_sharded(optimizer):
+        if mesh.model_index == 0:
+            optimizer.consolidate_state_dict(to=0)
+        return optimizer.state_dict() if mesh.rank == 0 else None
+    return optimizer.state_dict()
+
+
 def save_state(path: str, epoch: int, model: torch.nn.Module,
-               optimizer: torch.optim.Optimizer) -> None:
-    _save({"epoch": epoch, "state_dict": model.state_dict(),
-           "optimizer": optimizer.state_dict()}, path)
+               optimizer: torch.optim.Optimizer, mesh=None) -> None:
+    opt = optimizer_state(optimizer, mesh)
+    if _writes(mesh):
+        _save({"epoch": epoch, "state_dict": model.state_dict(),
+               "optimizer": opt}, path)
+    _barrier(mesh)
+
+
+def _dropout_states(model: torch.nn.Module) -> Dict:
+    return {name: m.get_rng_state() for name, m in model.named_modules()
+            if isinstance(m, SeededDropout)}
 
 
 def save_preempt_state(path: str, epoch: int, step: int,
                        model: torch.nn.Module,
-                       optimizer: torch.optim.Optimizer) -> None:
+                       optimizer: torch.optim.Optimizer, mesh=None) -> None:
     """The full state of a run preempted after ``step`` steps of epoch
     ``epoch`` + 1 (``epoch`` is the last complete one)."""
-    _save({"epoch": epoch, "step": step, "state_dict": model.state_dict(),
-           "optimizer": optimizer.state_dict(),
-           "dropout_rng": {name: m.get_rng_state()
-                           for name, m in model.named_modules()
-                           if isinstance(m, SeededDropout)}}, path)
+    opt = optimizer_state(optimizer, mesh)
+    rng = _dropout_states(model)
+    ranks = None if mesh is None or mesh.data == 1 else \
+        mesh.gather_objects(rng)
+    if _writes(mesh):
+        state = {"epoch": epoch, "step": step,
+                 "state_dict": model.state_dict(), "optimizer": opt,
+                 "dropout_rng": rng}
+        if ranks is not None:
+            state["dropout_rng_ranks"] = ranks
+        _save(state, path)
+    _barrier(mesh)
 
 
 def load_resume_state(path: str, model: torch.nn.Module,
-                      optimizer: Optional[torch.optim.Optimizer] = None
-                      ) -> Tuple[int, int, Optional[Dict]]:
+                      optimizer: Optional[torch.optim.Optimizer] = None,
+                      mesh=None) -> Tuple[int, int, Optional[Dict]]:
     """Restores a stage-2 file or a ``_preempt`` file in place: parameters
     and buffers, the Adam state unless ``optimizer`` is None (serving
     ignores it) and, from a ``_preempt`` file, the dropout generators'
@@ -78,12 +126,20 @@ def load_resume_state(path: str, model: torch.nn.Module,
     parameter or buffer of the model that the file lacks, or a tensor of
     the file that the model lacks, raises, so a model never serves
     half-random weights (din_tpu/train/checkpoint.py:171-174).  A
-    reference full-model ``.pth`` has this layout too and loads by name."""
+    reference full-model ``.pth`` has this layout too and loads by name.
+    With ``mesh`` the generators are its data rank's (module docstring);
+    a ZeRO-1 optimizer takes its share of the Adam state."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state["state_dict"], strict=True)
     if optimizer is not None:
         optimizer.load_state_dict(state["optimizer"])
     rng = state.get("dropout_rng")
+    index = 0 if mesh is None else mesh.data_index
+    ranks = state.get("dropout_rng_ranks")
+    if ranks is not None:
+        rng = ranks[index] if index < len(ranks) else None
+    elif index:
+        rng = None
     if rng is not None:
         device = next(model.parameters()).device
         for name, m in model.named_modules():
@@ -139,12 +195,15 @@ def prune_checkpoints(result_path: str, stage: int, keep: int) -> List[str]:
     return removed
 
 
-def save_stage1_components(path: str, model: torch.nn.Module) -> None:
+def save_stage1_components(path: str, model: torch.nn.Module,
+                           mesh=None) -> None:
     """The stage-1 component file of a Basenet (either dataset), the
     backbone's BatchNorm buffers included."""
-    _save({f"{name}_state_dict": getattr(model, name).state_dict()
-           for name in ("backbone", "fc_emb", "fc_actions", "fc_activities")},
-          path)
+    if _writes(mesh):
+        _save({f"{name}_state_dict": getattr(model, name).state_dict()
+               for name in ("backbone", "fc_emb", "fc_actions",
+                            "fc_activities")}, path)
+    _barrier(mesh)
 
 
 def load_backbone_stage2(model: torch.nn.Module, stage1_path: str) -> None:

@@ -2,7 +2,7 @@
 engine.py: ``make_train_step`` and ``_make_accum_train_step`` :66-188,
 ``make_eval_step`` and ``make_mad_step`` :191-221, ``_epoch_info``
 :224-250, ``newest_resumable`` :253-266, ``_train_net`` :288-552 and
-``_epoch_loop`` :555-645), on one device.
+``_epoch_loop`` :555-645), on one device or on the ranks of a joined run.
 
 The data come from ``data/datasets.py`` ``return_dataset`` (synthetic clips
 or a Volleyball or Collective Activity tree on disk, or its packed store),
@@ -68,6 +68,42 @@ launches the same kernels with MAD as without.  ``cfg.profile_dir`` traces
 the first epoch with ``torch.profiler`` (``utils/profiling.py``).
 ``cfg.debug_nans`` runs the run under autograd's anomaly mode with NaN
 checks and checks each step's loss, restoring the previous mode after.
+
+More than one rank (a run joined by ``parallel/multihost.py``
+``initialize_multihost``, e.g. under ``torch.distributed.run``; the
+layout of ``cfg.mesh_shape``, ``parallel/mesh.py``), as din_tpu's mesh
+runs (engine.py:273-285, 309-321, 433-446, 518-528):
+
+- the model is wrapped in ``DistributedDataParallel`` (``wrap_model``)
+  with ``broadcast_buffers=False`` (BatchNorm's running statistics agree
+  on every rank by construction) and ``find_unused_parameters=False``:
+  every trainable parameter gets a gradient on each of the 18 training
+  paths; its gradients are summed over the ranks, not averaged (a comm
+  hook), since each rank's loss is already its share of the global batch's
+  (``train/losses.py``); under ``frame_parallel`` the sum is divided by
+  the ranks of a model group, which all compute their data group's loss;
+- accumulation micro-steps run under ``no_sync()`` except the last; each
+  rank splits its own batch, so micro-step m takes every rank's m-th
+  slice, where din_tpu's scan takes the m-th slice of the global batch: a
+  deliberate difference, which only live BatchNorm's statistics see;
+- the loaders take ``process_index``/``process_count`` from the data
+  ranks (``cfg.batch_size`` is a data rank's batch, as din_tpu's is a
+  process's); the eval loader pads every rank to the same batch count;
+- the eval pass runs the unwrapped model, and the ranks' counters, losses,
+  confusions and MAD sums are added before they are reported;
+- the preemption stop is agreed: an all-reduce MAX of every rank's flag at
+  every step and eval boundary, so all ranks stop at the same step;
+- rank 0 alone writes ``log.txt``, ``metrics.jsonl``, ``experiments.json``
+  and checkpoints (``train/checkpoint.py``: the same layout as one process,
+  a ZeRO-1 state consolidated first), the others wait at a barrier; every
+  rank loads; the run's name is rank 0's;
+- each data rank has its own dropout streams: every ``SeededDropout``
+  seed moves by ``data_index * 2**32`` (rank 0 keeps the one-process
+  seeds).  This is a deliberate difference from din_tpu, whose one global
+  dropout key is split over the whole batch; a ``_preempt`` file holds
+  every data rank's generators.
+
+Two runs at one world size are bit-equal, as on one rank.
 """
 
 from __future__ import annotations
@@ -92,12 +128,15 @@ from din_tpu_torch.train.checkpoint import (load_backbone_stage2,
                                             save_preempt_state,
                                             save_stage1_components,
                                             save_state)
+from din_tpu_torch.nn.layers import SeededDropout
+from din_tpu_torch.parallel.mesh import current_mesh, make_mesh, use_mesh
 from din_tpu_torch.train.losses import compute_losses
-from din_tpu_torch.train.optim import (lr_for_epoch, make_optimizer,
-                                       set_learning_rate)
-from din_tpu_torch.train.preempt import PreemptionGuard
-from din_tpu_torch.utils.logging import (log_final_exp_result, print_log,
-                                         show_config, show_epoch_info)
+from din_tpu_torch.train.optim import (is_sharded, lr_for_epoch,
+                                       make_optimizer, set_learning_rate)
+from din_tpu_torch.train.preempt import PreemptionGuard, agreed_stop
+from din_tpu_torch.utils.logging import (is_log_rank, log_final_exp_result,
+                                         print_log, show_config,
+                                         show_epoch_info)
 from din_tpu_torch.utils.meters import MPCA, MADmeter, Timer
 from din_tpu_torch.utils.precision import deterministic_convs
 from din_tpu_torch.utils.profiling import profiler_trace
@@ -140,23 +179,74 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     deterministic algorithms (``deterministic_convs``), and the DIN head's
     gather has a backward that sums in a fixed order, so that two steps
     from one state on the card are bit-equal, as din_tpu's XLA steps
-    are."""
+    are.  Under an ambient mesh (``train_net`` with more than one rank)
+    ``model`` is its ``wrap_model`` and the metrics are this rank's shares
+    and counts: the micro-steps but the last run under ``no_sync()``."""
+    mesh = current_mesh()
+    group = None if mesh is None else mesh.data_group
     model.train()
     accum = max(int(cfg.grad_accum_steps or 1), 1)
+    ddp = isinstance(model, torch.nn.parallel.DistributedDataParallel)
     optimizer.zero_grad(set_to_none=True)
     parts = []
     with deterministic_convs():
-        for mb in _micro_batches(batch, accum):
-            out = model(mb["images"], mb["boxes"], mb.get("bboxes_num"))
-            metrics = compute_losses(out, mb, cfg, cfg.training_stage == 2)
-            loss = metrics["loss"]
-            if cfg.debug_nans and not bool(torch.isfinite(loss)):
-                raise FloatingPointError(
-                    f"non-finite loss {float(loss.detach())} (debug_nans)")
-            (loss if accum == 1 else loss / accum).backward()
+        for i, mb in enumerate(_micro_batches(batch, accum)):
+            sync = model.no_sync() if ddp and i < accum - 1 \
+                else contextlib.nullcontext()
+            with sync:
+                out = model(mb["images"], mb["boxes"], mb.get("bboxes_num"))
+                metrics = compute_losses(out, mb, cfg,
+                                         cfg.training_stage == 2, group)
+                loss = metrics["loss"]
+                if cfg.debug_nans:
+                    bad = not bool(torch.isfinite(loss))
+                    if mesh.agree(bad) if mesh is not None else bad:
+                        raise FloatingPointError(
+                            f"non-finite loss {float(loss.detach())} "
+                            f"(debug_nans)")
+                (loss if accum == 1 else loss / accum).backward()
             parts.append({k: v.detach() for k, v in metrics.items()})
     optimizer.step()
     return parts[0] if accum == 1 else combine_micro_metrics(parts)
+
+
+def sum_gradients_hook(state, bucket):
+    """DDP comm hook: a bucket's gradients summed over ``state``'s group
+    and divided by its count of model ranks (each computes its data
+    group's loss)."""
+    group, copies = state
+    fut = torch.distributed.all_reduce(bucket.buffer(), group=group,
+                                       async_op=True).get_future()
+
+    def done(f):
+        grads = f.value()[0]
+        return grads if copies == 1 else grads.div_(copies)
+    return fut.then(done)
+
+
+def wrap_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
+    """``model`` itself on one rank; else ``DistributedDataParallel`` over
+    the default group (module docstring: no buffer broadcasts, no search
+    for unused parameters, gradients summed)."""
+    if mesh is None or mesh.size == 1:
+        return model
+    dev = next(model.parameters()).device
+    index = None if dev.type != "cuda" else \
+        (dev.index if dev.index is not None else torch.cuda.current_device())
+    ddp = torch.nn.parallel.DistributedDataParallel(
+        model, device_ids=None if index is None else [index],
+        broadcast_buffers=False, find_unused_parameters=False)
+    ddp.register_comm_hook((None, mesh.model), sum_gradients_hook)
+    return ddp
+
+
+def seed_dropouts_for_rank(model: torch.nn.Module, data_index: int) -> None:
+    """Each data rank its own dropout streams: every ``SeededDropout``'s
+    seed moves by ``data_index * 2**32`` (0 keeps it)."""
+    for m in model.modules():
+        if isinstance(m, SeededDropout):
+            m.seed += data_index << 32
+            m.generator = None
 
 
 def mad_nodes(out: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -175,11 +265,13 @@ def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
               cfg) -> Dict[str, torch.Tensor]:
     """The losses and counters of one eval batch; with ``cfg.measure_mad``
     the same forward also gives the MAD nodes, under ``"mad_nodes"``."""
+    mesh = current_mesh()
     model.eval()
     kwargs = {"return_mad": True} if cfg.measure_mad else {}
     out = model(batch["images"], batch["boxes"], batch.get("bboxes_num"),
                 **kwargs)
-    metrics = compute_losses(out, batch, cfg, cfg.training_stage == 2)
+    metrics = compute_losses(out, batch, cfg, cfg.training_stage == 2,
+                             None if mesh is None else mesh.data_group)
     if cfg.measure_mad:
         metrics["mad_nodes"] = mad_nodes(out)
     return metrics
@@ -187,6 +279,28 @@ def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
 
 def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in metrics.items()}
+
+
+def reduce_metrics(metrics: List[Dict[str, np.ndarray]],
+                   mesh=None) -> List[Dict[str, np.ndarray]]:
+    """Each step's host metrics summed over the data ranks: losses (each
+    rank's is its share of the global batch's), counters and confusions;
+    as they are on one data rank."""
+    if mesh is None or mesh.data == 1 or not metrics:
+        return metrics
+    keys = sorted(metrics[0])
+    flat = np.concatenate([np.asarray(m[k], np.float64).ravel()
+                           for m in metrics for k in keys])
+    flat = mesh.host_sum(flat)
+    out, at = [], 0
+    for m in metrics:
+        r = {}
+        for k in keys:
+            v = np.asarray(m[k])
+            r[k] = flat[at:at + v.size].reshape(v.shape).astype(v.dtype)
+            at += v.size
+        out.append(r)
+    return out
 
 
 def epoch_info(metric_list: List[Dict[str, np.ndarray]], epoch: int,
@@ -220,11 +334,15 @@ def epoch_info(metric_list: List[Dict[str, np.ndarray]], epoch: int,
     return info
 
 
-def _setup_training(cfg, device=None):
+def _setup_training(cfg, device=None, mesh=None):
     """``setup_training``'s (model, optimizer, start_epoch) and the steps
-    done of the start epoch (a ``_preempt`` file's; else 0)."""
+    done of the start epoch (a ``_preempt`` file's; else 0); with ``mesh``
+    this rank's (its dropout streams, a ZeRO-1 optimizer under
+    ``cfg.shard_opt_state``, its generators of a ``_preempt`` file)."""
     device = resolve_device(device)
     model = build_model(cfg, device=device)
+    if mesh is not None and mesh.data_index:
+        seed_dropouts_for_rank(model, mesh.data_index)
     if cfg.measure_mad and not getattr(model, "returns_mad", False):
         raise ValueError(
             f"measure_mad needs a model that returns its DIN head's MAD "
@@ -236,7 +354,7 @@ def _setup_training(cfg, device=None):
         skipped = load_reference_checkpoint(model, cfg.ref_checkpoint_path)
         print_log(cfg.log_path, "Loaded reference checkpoint %s (%d keys "
                   "skipped)" % (cfg.ref_checkpoint_path, len(skipped)))
-    optimizer = make_optimizer(cfg, model)
+    optimizer = make_optimizer(cfg, model, mesh, cfg.log_path)
     resume = cfg.load_stage2model and cfg.stage2model
     if cfg.training_stage == 2:
         if cfg.load_backbone_stage2 and cfg.stage1_model_path:
@@ -245,7 +363,7 @@ def _setup_training(cfg, device=None):
                       "Loaded stage1 backbone: " + cfg.stage1_model_path)
         elif resume:
             last, resume_step, _ = load_resume_state(cfg.stage2model, model,
-                                                     optimizer)
+                                                     optimizer, mesh)
             start_epoch, resumed = last + 1, True
             print_log(cfg.log_path, "Loading stage2 model: %s (resuming at "
                       "epoch %d%s)" % (cfg.stage2model, start_epoch,
@@ -256,7 +374,7 @@ def _setup_training(cfg, device=None):
     elif resume:
         # stage-1 preemption resume: its _preempt file holds the full state
         last, resume_step, _ = load_resume_state(cfg.stage2model, model,
-                                                 optimizer)
+                                                 optimizer, mesh)
         start_epoch, resumed = last + 1, True
         print_log(cfg.log_path, "Resuming stage1 from %s (epoch %d%s)"
                   % (cfg.stage2model, start_epoch,
@@ -269,8 +387,13 @@ def _setup_training(cfg, device=None):
         print_log(cfg.log_path, "Kept the resumed optimizer state over the "
                   "reference file's (resuming at epoch %d)" % start_epoch)
     elif cfg.ref_checkpoint_path and cfg.ref_resume_optimizer:
+        # ZeRO-1 takes the state through a replicated Adam's state_dict
+        target = make_optimizer(cfg, model) if is_sharded(optimizer) \
+            else optimizer
         start_epoch = load_reference_optimizer(
-            model, optimizer, cfg.ref_checkpoint_path, cfg) + 1
+            model, target, cfg.ref_checkpoint_path, cfg) + 1
+        if target is not optimizer:
+            optimizer.load_state_dict(target.state_dict())
         print_log(cfg.log_path, "Adopted reference optimizer state "
                   "(resuming at epoch %d)" % start_epoch)
     return model, optimizer, start_epoch, resume_step
@@ -305,7 +428,9 @@ def run_eval(model, loader: BatchLoader, cfg, epoch: int,
              device: torch.device, stop=None) -> Dict:
     """One eval pass: the epoch info, with ``"MAD"`` under
     ``cfg.measure_mad``; a true ``stop()`` after a batch ends the pass,
-    and the info then holds ``"preempted": True``."""
+    and the info then holds ``"preempted": True``.  Under an ambient mesh
+    ``model`` is the unwrapped model, and the info is of every rank's
+    clips."""
     timer = Timer()
     metrics = []
     mad = MADmeter(cfg.num_frames, cfg.num_boxes) if cfg.measure_mad \
@@ -325,8 +450,12 @@ def run_eval(model, loader: BatchLoader, cfg, epoch: int,
             if "sample_mask" in b:                 # drop padded clips
                 nodes = nodes[b["sample_mask"].cpu().numpy() > 0]
             mad.cal_MAD(nodes, field=None, field_shape="dynamic")
+    mesh = current_mesh()
+    metrics = reduce_metrics(metrics, mesh)
     info = epoch_info(metrics, epoch, timer.timeit(), cfg.num_activities)
     if mad is not None:
+        if mesh is not None:
+            mad.all_reduce(mesh.host_sum)
         info["MAD"] = float(mad.output_MAD())
     if preempted:
         info["preempted"] = True
@@ -338,18 +467,25 @@ def train_net(cfg, max_steps_per_epoch: Optional[int] = None,
     """Full training loop of either stage (reference train_net.py:28-137).
     Returns the best eval info, with the path of the last file written under
     ``"checkpoint"``; with ``cfg.eval_only`` the info of its eval pass; on
-    a preemption what it had, after writing the ``_preempt`` file."""
+    a preemption what it had, after writing the ``_preempt`` file.  In a
+    joined run every rank calls it with the same ``cfg`` (the module
+    docstring says what each rank does)."""
     device = resolve_device(device)
+    mesh = make_mesh(cfg)
+    if mesh.size > 1:
+        # one result directory: rank 0's (timestamped) name
+        cfg.exp_name = mesh.broadcast_object(
+            cfg.init_config(need_new_folder=False).exp_name)
     cfg.init_config()
     show_config(cfg)
     # anomaly mode is process-wide: on for this run only, as it was after
     nan_checks = torch.autograd.set_detect_anomaly(True, check_nan=True) \
         if cfg.debug_nans else contextlib.nullcontext()
-    with nan_checks:
-        return _train_net(cfg, max_steps_per_epoch, device)
+    with nan_checks, use_mesh(mesh):
+        return _train_net(cfg, max_steps_per_epoch, device, mesh)
 
 
-def _train_net(cfg, max_steps_per_epoch, device) -> Dict:
+def _train_net(cfg, max_steps_per_epoch, device, mesh) -> Dict:
     if cfg.auto_resume and not cfg.stage2model:
         newest = newest_resumable(cfg.result_path, cfg.training_stage)
         if newest:
@@ -357,14 +493,19 @@ def _train_net(cfg, max_steps_per_epoch, device) -> Dict:
             cfg.load_stage2model = True
             cfg.load_backbone_stage2 = False
     training_set, validation_set = return_dataset(cfg)
+    # every data rank its strided shard of the shared order
+    shard = dict(process_index=mesh.data_index, process_count=mesh.data,
+                 even_batches=True)
     train_loader = BatchLoader(training_set, cfg.batch_size, shuffle=True,
                                num_workers=cfg.num_workers,
-                               seed=cfg.train_random_seed)
+                               seed=cfg.train_random_seed, **shard)
     # remainder eval batches are padded (cycled) and masked
     val_loader = BatchLoader(validation_set, cfg.test_batch_size,
                              shuffle=False, num_workers=cfg.num_workers,
-                             drop_last=False, pad_last=True)
-    model, optimizer, start_epoch, resume_step = _setup_training(cfg, device)
+                             drop_last=False, pad_last=True, **shard)
+    model, optimizer, start_epoch, resume_step = _setup_training(cfg, device,
+                                                                 mesh)
+    step_model = wrap_model(model, mesh)
     best = {"epoch": 0, "activities_acc": 0.0}
     total_timer = Timer()
 
@@ -372,7 +513,7 @@ def _train_net(cfg, max_steps_per_epoch, device) -> Dict:
         path = os.path.join(cfg.result_path, "stage%d_epoch%d_preempt.pth"
                             % (cfg.training_stage, last_done_epoch))
         save_preempt_state(path, last_done_epoch, steps_done, model,
-                           optimizer)
+                           optimizer, mesh)
         print_log(cfg.log_path,
                   "preemption: state saved to %s (epoch %d, %d steps done) "
                   "— resume with auto_resume=True"
@@ -382,7 +523,7 @@ def _train_net(cfg, max_steps_per_epoch, device) -> Dict:
         else contextlib.nullcontext()
     with guard_ctx as guard:
         def stop() -> bool:
-            return guard is not None and guard.should_stop
+            return agreed_stop(guard, mesh)
 
         if cfg.eval_only:
             info = run_eval(model, val_loader, cfg, start_epoch - 1, device,
@@ -415,11 +556,12 @@ def _train_net(cfg, max_steps_per_epoch, device) -> Dict:
             metrics = []
             trace = profiler_trace(cfg.profile_dir) \
                 if cfg.profile_dir and epoch == start_epoch \
-                else contextlib.nullcontext()
+                and is_log_rank() else contextlib.nullcontext()
             with trace:
                 for i, batch in enumerate(prefetch_to_device(
                         train_loader, device, cfg.prefetch_depth)):
-                    metrics.append(train_step(model, optimizer, batch, cfg))
+                    metrics.append(train_step(step_model, optimizer, batch,
+                                              cfg))
                     if stop():
                         # at the step boundary; the resume continues this
                         # epoch at the next batch
@@ -427,10 +569,11 @@ def _train_net(cfg, max_steps_per_epoch, device) -> Dict:
                         return best
                     if max_steps_per_epoch and i + 1 >= max_steps_per_epoch:
                         break
-            metrics = [_to_host(m) for m in metrics]  # waits for the device
+            metrics = reduce_metrics([_to_host(m) for m in metrics],
+                                     mesh)  # waits for the device
             info = epoch_info(metrics, epoch, timer.timeit(),
                               cfg.num_activities,
-                              clips=len(metrics) * cfg.batch_size)
+                              clips=len(metrics) * cfg.batch_size * mesh.data)
             show_epoch_info("Train", cfg.log_path, info)
 
             if epoch % cfg.test_interval_epoch:
@@ -451,14 +594,15 @@ def _train_net(cfg, max_steps_per_epoch, device) -> Dict:
                 cfg.training_stage, epoch, test_info["activities_acc"])
             path = os.path.join(cfg.result_path, name)
             if cfg.training_stage == 2:
-                save_state(path, epoch, model, optimizer)
+                save_state(path, epoch, model, optimizer, mesh)
             elif test_info["activities_acc"] == best["activities_acc"]:
-                save_stage1_components(path, model)
+                save_stage1_components(path, model, mesh)
             else:
                 continue
             best["checkpoint"] = path
             print_log(cfg.log_path, "model saved to: " + path)
-            if cfg.training_stage == 2 and cfg.keep_checkpoints:
+            if cfg.training_stage == 2 and cfg.keep_checkpoints and \
+                    is_log_rank():
                 removed = prune_checkpoints(cfg.result_path, 2,
                                             cfg.keep_checkpoints)
                 if removed:

@@ -5,6 +5,14 @@ the output keys present of CE(activities) + actions_loss_weight *
 weighted-CE(actions) + halting * halting_penalty.  Collective action labels
 are padded with -1; a padded entry carries weight 0.  A batch may carry a
 ``sample_mask`` (padded eval batches), which masks its clips out.
+
+More than one data rank (``group``, the ranks of ``Mesh.data_group``):
+each rank's loss is its share of the loss of the global batch.  A mean's
+denominator, ``sum(w)``, is all-reduced over the ranks, so the shares of
+the weighted actions loss, of Collective's padded (-1) actions and of
+masked clips add up to the global batch's loss; the halting loss is a sum
+over clips and adds up as it is.  The counters stay per rank; the trainer
+sums them over the ranks before it reports them.
 """
 
 from __future__ import annotations
@@ -12,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 
@@ -23,9 +32,12 @@ def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   class_weights: Optional[torch.Tensor] = None,
-                  valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  valid_mask: Optional[torch.Tensor] = None,
+                  group=None) -> torch.Tensor:
     """torch ``F.cross_entropy`` semantics: the weighted mean with the weight
-    of each sample's true class as denominator; masked samples weigh 0."""
+    of each sample's true class as denominator; masked samples weigh 0.
+    With ``group`` the denominator is the sum over its ranks (this rank's
+    share of the global batch's mean)."""
     logits = logits.float()
     safe_labels = labels.long().clamp(0, logits.shape[-1] - 1)
     logp = F.log_softmax(logits, dim=-1)
@@ -38,7 +50,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         w = torch.ones_like(nll)
     if valid_mask is not None:
         w = w * valid_mask.to(w.dtype)
-    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1e-12)
+    den = torch.sum(w)
+    if group is not None:
+        den = den.detach().clone()
+        dist.all_reduce(den, group=group)
+    return torch.sum(nll * w) / torch.clamp(den, min=1e-12)
 
 
 def accuracy_counts(logits: torch.Tensor, labels: torch.Tensor,
@@ -69,9 +85,10 @@ def confusion_matrix(logits: torch.Tensor, labels: torch.Tensor,
 
 def compute_losses(outputs: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor], cfg,
-                   frame0_labels: bool) -> Dict[str, torch.Tensor]:
+                   frame0_labels: bool, group=None) -> Dict[str, torch.Tensor]:
     """dict(loss=..., metric pieces).  ``frame0_labels``: stage 2 takes clip
-    labels from frame 0 (train_net_dynamic.py:182-184)."""
+    labels from frame 0 (train_net_dynamic.py:182-184).  ``group``: the
+    data ranks whose losses are shares of one global batch's."""
     metrics = {}
     sample_mask = batch.get("sample_mask")                   # [B] or None
     sm_bool = None if sample_mask is None else sample_mask > 0
@@ -90,7 +107,8 @@ def compute_losses(outputs: Dict[str, torch.Tensor],
         # volleyball stage 1: scores [B, G] against per-frame labels
         act_labels = activities_in[:, 0]
         act_valid = sm_bool
-    a_loss = cross_entropy(act_scores, act_labels, valid_mask=act_valid)
+    a_loss = cross_entropy(act_scores, act_labels, valid_mask=act_valid,
+                           group=group)
     loss = a_loss
     c, t = accuracy_counts(act_scores, act_labels, act_valid)
     metrics["activities_loss"] = a_loss
@@ -117,7 +135,8 @@ def compute_losses(outputs: Dict[str, torch.Tensor],
         wl = cfg.action_weight_list
         weights = None if wl is None else torch.tensor(wl,
                                                        dtype=torch.float32)
-        ac_loss = cross_entropy(outputs["actions"], labels, weights, valid)
+        ac_loss = cross_entropy(outputs["actions"], labels, weights, valid,
+                                group)
         loss = loss + cfg.actions_loss_weight * ac_loss
         c, t = accuracy_counts(outputs["actions"], labels, valid)
         metrics["actions_loss"] = ac_loss

@@ -11,6 +11,11 @@ boundary and after every eval batch, writes a full-state checkpoint
 state, the epoch, the steps done and every dropout generator's state) and
 returns.  ``cfg.auto_resume`` picks that file up on the next launch and
 continues the interrupted epoch at its next batch.
+
+In a run of more than one rank the signal may reach one rank alone; the
+stop is agreed (``agreed_stop``: an all-reduce MAX of every rank's flag at
+every boundary, din_tpu/train/engine.py:518-528), so every rank stops at
+the same step and none waits in a collective the others left.
 """
 
 from __future__ import annotations
@@ -53,3 +58,11 @@ class PreemptionGuard:
             signal.signal(sig, prev)
         self._prev.clear()
         self.armed = False
+
+
+def agreed_stop(guard, mesh=None) -> bool:
+    """True if ``guard`` (None: no guard) latched a signal on this rank
+    or, with ``mesh``, on any rank of it.  Every rank calls it at the same
+    boundaries."""
+    local = guard is not None and guard.should_stop
+    return local if mesh is None else mesh.agree(local)

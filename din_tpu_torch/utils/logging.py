@@ -2,7 +2,9 @@
 reference utils.py:101-158): the human log ``log.txt``, a machine-readable
 ``metrics.jsonl`` beside it (one JSON object per reported epoch and phase)
 and the experiment db ``experiments.json`` under ``result_root`` (JSON where
-the reference writes a pickle)."""
+the reference writes a pickle).  In a run of more than one rank only
+rank 0 prints and writes them (``is_log_rank``); the trainer sums the
+ranks' counters before it reports them."""
 
 from __future__ import annotations
 
@@ -14,8 +16,18 @@ from typing import Optional
 import numpy as np
 
 
+def is_log_rank() -> bool:
+    """True where this process reports: one process, or rank 0 of a
+    joined run."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) or \
+        dist.get_rank() == 0
+
+
 def print_log(file_path: Optional[str], *args) -> None:
-    """Print to stdout and append to the experiment log."""
+    """Print to stdout and append to the experiment log (rank 0 only)."""
+    if not is_log_rank():
+        return
     print(*args, flush=True)
     if file_path is not None:
         with open(file_path, "a") as f:
@@ -42,8 +54,8 @@ def append_metrics_jsonl(log_path: Optional[str], phase: str,
                          info: dict) -> None:
     """One JSON object ``{"phase": ..., **info}`` (arrays as nested lists)
     appended to ``metrics.jsonl`` beside ``log_path``: the stream a monitor
-    tails (din_tpu/utils/logging.py:41-54)."""
-    if log_path is None:
+    tails (din_tpu/utils/logging.py:41-54).  Rank 0 only."""
+    if log_path is None or not is_log_rank():
         return
     path = os.path.join(os.path.dirname(log_path), "metrics.jsonl")
     rec = {"phase": phase}
@@ -86,7 +98,10 @@ def log_final_exp_result(log_path: str, data_path: str,
     """The final summary appended to ``log_path`` (the config without its
     bookkeeping fields, the best result, the total hours) and the run's
     entry ``{exp_name: {"best_result", "total_time"}}`` merged into the
-    JSON db ``data_path`` (din_tpu/utils/logging.py:83-117)."""
+    JSON db ``data_path`` (din_tpu/utils/logging.py:83-117).  Rank 0
+    only."""
+    if not is_log_rank():
+        return
     no_display_cfg = {
         "num_workers", "use_gpu", "use_multi_gpu", "device_list",
         "batch_size_test", "test_interval_epoch", "train_random_seed",

@@ -1,7 +1,9 @@
 """Meters of the training loop (port of din_tpu/utils/meters.py:18-160;
 reference utils.py:161-384): ``AverageMeter``, ``Timer``,
 ``ConfusionMeter``, ``MPCA`` and ``MADmeter``, numpy on the host (the
-engine brings a step's results to the host once, after the step)."""
+engine brings a step's results to the host once, after the step).  Each
+rank of a run meters its own clips; ``MADmeter.all_reduce`` sums the
+ranks' meters."""
 
 from __future__ import annotations
 
@@ -163,3 +165,11 @@ class MADmeter:
 
     def output_MAD(self):
         return self.MAD / max(self.B, 1)
+
+    def all_reduce(self, reduce_sum) -> None:
+        """The sums of every rank's meter, by ``reduce_sum`` (an array
+        summed over the ranks, ``Mesh.host_sum``), so that each rank's
+        ``output_MAD`` is the mean over all their clips."""
+        self.MAD, B = (float(v) for v in
+                       reduce_sum(np.array([self.MAD, self.B], np.float64)))
+        self.B = int(round(B))
